@@ -1,14 +1,18 @@
 """madqp_tpu_torch — the LP/QP interior-point solver in PyTorch, for CUDA.
 
 Port of `madqp_tpu` (the JAX package, which stays the reference): the
-dense Mehrotra predictor-corrector solve with the condensed / normal KKT
-systems, on any torch device.  The Pallas Cholesky of the reference is a
-hand-written CUDA kernel here (`ops/pallas_chol.py`, `csrc/cholesky.cu`),
-selected with `linear_solver="pallas"`.
+dense Mehrotra predictor-corrector solve with the condensed, normal, K2
+and K2.5 KKT systems, shape bucketing and the shape-routed `autosolve`.
+The reference's Pallas kernels are hand-written CUDA kernels here: the
+Cholesky (K1: `ops/pallas_chol.py`, `csrc/cholesky.cu`), selected with
+`linear_solver="pallas"`, and the rank-k update (K8: `ops/syrk.py`,
+`csrc/syrk.cu`), the trailing update of the panel Cholesky behind
+`linear_solver="blocked"`.
 
 Importing the package sets no global state: every tensor carries an
 explicit dtype (float64 by default, `factorization_dtype` for the
-factors) and device (`solve(qp, device="cuda")`).
+factors) and device (the CUDA card unless the caller passes
+`device="cpu"`).
 """
 
 from .utils import (

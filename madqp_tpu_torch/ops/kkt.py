@@ -14,13 +14,23 @@ by the reference at src/KKT/normalkkt.jl:128-219):
 Bound-dual elimination/recovery around this reduced system is formulation-
 independent and lives in ops.kernels (reduce_rhs / recover_bound_duals).
 
-Ported formulations:
+All formulations produce the same Newton step in exact arithmetic; they
+differ in conditioning and cost:
+
   * CONDENSED — block elimination: Cholesky of W (SPD: H PSD + pr_diag > 0),
     then Cholesky of the SPD Schur complement S = A W^-1 A' - dc I.
+    `chol_backend="blocked"` factors both through
+    `blocked_dense.factor_inv_chol` (the two-level panel Cholesky with K8
+    trailing updates from order 1024 up) and keeps the inverse Cholesky
+    factors, so each solve is two matvecs; `solve_mode="inverse"` keeps
+    explicit inverses of the scaled blocks.
   * NORMAL    — LP specialization (W diagonal): S = A D A' - dc I with
     D = 1/pr_diag.  Rejects QPs like the reference (normalkkt.jl:45-48).
-The augmented K2 / K2.5 systems, `chol_backend="blocked"` and
-`solve_mode="inverse"` are not ported yet: `make_kkt` raises
+  * K2        — full (n+m) symmetric-indefinite augmented matrix, dense LU
+    (`torch.linalg.lu_factor_ex`), or with `chol_backend="blocked"` the
+    signed no-pivot `blocked_ldl` and its inverse unit factor.
+  * K2_5      — K2 with symmetric Jacobi scaling.
+The Schur and sparse formulations are not ported yet: `make_kkt` raises
 `NotImplementedError` naming the ROADMAP.md item that ports each.
 """
 
@@ -30,6 +40,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .blocked_dense import blocked_ldl, factor_inv_chol, inv_unit_lower
 from .kernels import KKTVec, slacks
 from .pallas_chol import select_cholesky
 
@@ -58,6 +69,11 @@ class CondensedFactors(NamedTuple):
     chol_S: torch.Tensor             # (m, m) lower Cholesky of scaled Schur compl.
     s_scale: torch.Tensor            # (m,) Jacobi scale of S
     A: torch.Tensor                  # (m, n) kept for the solve
+    W_inv: Optional[torch.Tensor] = None  # explicit scaled inverses (solve_mode
+    S_inv: Optional[torch.Tensor] = None  # 'inverse': backsolves become matvecs)
+    W_iL: Optional[torch.Tensor] = None   # blocked path: inverse CHOLESKY factors
+    S_iL: Optional[torch.Tensor] = None   # (M^-1 r = D iL' iL D r, two matvecs;
+    #                                       iL'iL itself is never formed)
 
 
 class DenseCondensedKKT:
@@ -78,27 +94,72 @@ class DenseCondensedKKT:
 
     def __init__(self, fact_dtype=None, chol_backend: str = "xla",
                  solve_mode: str = "chol"):
-        if chol_backend == "blocked":
-            raise NotImplementedError(
-                "linear_solver='blocked' is not ported yet "
-                "(ROADMAP.md Queue 1, item 8a: kernels K2/K3)")
-        if solve_mode != "chol":
-            raise NotImplementedError(
-                f"solve_mode={solve_mode!r} is not ported yet "
-                "(ROADMAP.md Queue 1, item 8c)")
         self.fact_dtype = torch_dtype(fact_dtype) if fact_dtype else None
         self.solve_mode = solve_mode
+        self.blocked = chol_backend == "blocked"
         self._chol = select_cholesky("pallas" if chol_backend == "pallas"
                                      else "xla")
 
-    def _chol_scaled(self, M):
-        """Jacobi-scale M to unit diagonal, factorize (optionally in
-        fact_dtype).  Returns (chol, scale)."""
+    def _scaled(self, M):
+        """Jacobi-scale M to unit diagonal and cast it to fact_dtype.
+        Returns (Ms, scale)."""
         d = torch.diagonal(M)
         scale = 1.0 / torch.sqrt(torch.clamp(d.abs(), min=1e-300))
         Ms = scale[:, None] * M * scale[None, :]
         if self.fact_dtype is not None and Ms.dtype != self.fact_dtype:
             Ms = Ms.to(self.fact_dtype)
+        return Ms, scale
+
+    def _blocked_inv(self, M):
+        """GEMM-rich factor + INVERSE CHOLESKY FACTOR (ops/blocked_dense):
+        the explicit inverse factor iL = L_chol^-1 turns every later
+        backsolve into two matvecs (M^-1 r = D iL' iL D r); the full
+        inverse iL'iL is never formed.  A non-SPD input leaves NaN or a
+        non-positive value on the factor's diagonal, which factor_ok reads.
+        Returns (chol_like_factor_for_factor_ok, iL, scale)."""
+        Ms, scale = self._scaled(M)
+        Lc, iL = factor_inv_chol(Ms)
+        return Lc, iL, scale
+
+    @staticmethod
+    def _iL_apply(iL, scale, r, out_dtype):
+        """M^-1 r = D (iL' (iL (D r))) with D = diag(scale); works for a
+        vector or a matrix r (columns are independent solves)."""
+        rs = scale[:, None] * r if r.dim() == 2 else scale * r
+        y = (iL.T @ (iL @ rs.to(iL.dtype))).to(out_dtype)
+        return scale[:, None] * y if r.dim() == 2 else scale * y
+
+    def _factorize_blocked(self, prob, pr_diag, del_c):
+        H, A = prob.H, prob.A
+        m = A.shape[0]
+        if H is None:
+            chol_W, W_iL, w_scale = None, None, None
+            Winv_AT = A.T / pr_diag[:, None]
+        else:
+            chol_W, W_iL, w_scale = self._blocked_inv(H + torch.diag(pr_diag))
+            Winv_AT = self._iL_apply(W_iL, w_scale, A.T, A.dtype)
+        S = A @ Winv_AT - del_c * torch.eye(m, dtype=A.dtype, device=A.device)
+        chol_S, S_iL, s_scale = self._blocked_inv(S)
+        return CondensedFactors(
+            chol_W=chol_W, w_scale=w_scale, w_diag=pr_diag,
+            chol_S=chol_S, s_scale=s_scale, A=A,
+            W_iL=W_iL, S_iL=S_iL,
+        )
+
+    @staticmethod
+    def _explicit_inverse(chol, scale):
+        """Unscaled explicit inverse through the scaled factorization:
+        M^-1 = D Ms^-1 D with D = diag(scale).  The triangular solves
+        against the identity run once per factorization; every backsolve
+        after them is one matvec."""
+        eye = torch.eye(chol.shape[0], dtype=chol.dtype, device=chol.device)
+        Ms_inv = torch.cholesky_solve(eye, chol)
+        return (scale[:, None] * Ms_inv.to(scale.dtype)) * scale[None, :]
+
+    def _chol_scaled(self, M):
+        """Jacobi-scale M to unit diagonal, factorize (optionally in
+        fact_dtype).  Returns (chol, scale)."""
+        Ms, scale = self._scaled(M)
         return self._chol(Ms), scale
 
     @staticmethod
@@ -115,6 +176,8 @@ class DenseCondensedKKT:
         return scale * xs.to(out_dtype)
 
     def factorize(self, prob, pr_diag, del_c):
+        if self.blocked:
+            return self._factorize_blocked(prob, pr_diag, del_c)
         H, A = prob.H, prob.A
         m = A.shape[0]
         if H is None:
@@ -128,17 +191,32 @@ class DenseCondensedKKT:
         S = A @ Winv_AT
         S = S - del_c * torch.eye(m, dtype=A.dtype, device=A.device)
         chol_S, s_scale = self._chol_scaled(S)
+        W_inv = S_inv = None
+        if self.solve_mode == "inverse":
+            if chol_W is not None:
+                W_inv = self._explicit_inverse(chol_W, w_scale)
+            if m > 0:
+                S_inv = self._explicit_inverse(chol_S, s_scale)
         return CondensedFactors(
             chol_W=chol_W, w_scale=w_scale, w_diag=pr_diag,
             chol_S=chol_S, s_scale=s_scale, A=A,
+            W_inv=W_inv, S_inv=S_inv,
         )
 
     def _W_solve(self, f: CondensedFactors, r):
         if f.chol_W is None:
             return r / f.w_diag
+        if f.W_iL is not None:
+            return self._iL_apply(f.W_iL, f.w_scale, r, r.dtype)
+        if f.W_inv is not None:
+            return f.W_inv @ r
         return self._chol_apply(f.chol_W, f.w_scale, r, r.dtype)
 
     def _S_solve(self, f: CondensedFactors, r):
+        if f.S_iL is not None:
+            return self._iL_apply(f.S_iL, f.s_scale, r, r.dtype)
+        if f.S_inv is not None:
+            return f.S_inv @ r
         return self._chol_apply(f.chol_S, f.s_scale, r, r.dtype)
 
     def solve(self, f: CondensedFactors, rx, ry):
@@ -182,6 +260,147 @@ class DenseNormalKKT(DenseCondensedKKT):
 
 
 # ---------------------------------------------------------------------------
+# K2 augmented formulation (dense LU or signed blocked LDL^T)
+# ---------------------------------------------------------------------------
+
+
+class K2Factors(NamedTuple):
+    lu: torch.Tensor
+    piv: torch.Tensor
+
+
+class K2BlockedFactors(NamedTuple):
+    iLu: torch.Tensor    # inverse UNIT-LDL factor: K^-1 r = S iLu' D^-1 iLu S r
+    d: torch.Tensor      # LDL pivots (inertia check + the D^-1 in solves)
+    sgn: torch.Tensor    # expected pivot signs (+1 x n, -1 x m)
+    scale: Optional[torch.Tensor] = None  # K2.5 Jacobi scale S (None = unscaled)
+
+
+class K25Factors(NamedTuple):
+    lu: torch.Tensor
+    piv: torch.Tensor
+    scale: torch.Tensor
+
+
+class DenseK2KKT:
+    """Full augmented symmetric-indefinite system [W A'; A dc I].
+
+    MadNLP SparseKKTSystem analog (the reference default, src/utils.jl:108).
+    Backends: dense LU (default) or, with chol_backend='blocked', the
+    GEMM-rich signed LDL^T (no pivoting: the IPM's regularization keeps the
+    matrix quasi-definite) with the inverse unit factor, so backsolves are
+    matvecs.  `solve_mode` has no effect here (as in the JAX package).
+    """
+
+    name = "k2"
+
+    def __init__(self, fact_dtype=None, chol_backend: str = "xla",
+                 solve_mode: str = "chol"):
+        self.fact_dtype = torch_dtype(fact_dtype) if fact_dtype else None
+        self.blocked = chol_backend == "blocked"
+
+    def _to_fact(self, K):
+        if self.fact_dtype is not None and K.dtype != self.fact_dtype:
+            return K.to(self.fact_dtype)
+        return K
+
+    def _factorize_blocked(self, K, m, scale=None):
+        nm = K.shape[0]
+        Kf = self._to_fact(K)
+        sgn = torch.cat([
+            torch.ones(nm - m, dtype=Kf.dtype, device=Kf.device),
+            -torch.ones(m, dtype=Kf.dtype, device=Kf.device)])
+        # Static pivot floor in float32 (refinement absorbs it); meaningful
+        # only on a ~unit-diagonal matrix, i.e. under K2.5.
+        floor = 1e-6 if (self.fact_dtype == torch.float32
+                         and scale is not None) else 0.0
+        Lu, d = blocked_ldl(Kf, sgn=sgn, floor=floor)
+        # Keep the inverse unit factor, not the full K^-1: solves are two
+        # matvecs and a diagonal scale.
+        return K2BlockedFactors(iLu=inv_unit_lower(Lu), d=d, sgn=sgn,
+                                scale=scale)
+
+    @staticmethod
+    def _assemble(H, A, pr_diag, del_c):
+        n = pr_diag.shape[0]
+        m = A.shape[0]
+        W = torch.diag(pr_diag) if H is None else H + torch.diag(pr_diag)
+        K = torch.zeros((n + m, n + m), dtype=pr_diag.dtype,
+                        device=pr_diag.device)
+        K[:n, :n] = W
+        K[:n, n:] = A.T
+        K[n:, :n] = A
+        K[n:, n:] = del_c * torch.eye(m, dtype=pr_diag.dtype,
+                                      device=pr_diag.device)
+        return K
+
+    @staticmethod
+    def _lu(K):
+        """LU with partial pivoting; an exactly singular matrix leaves a
+        zero on U's diagonal (read by factor_ok) rather than raising."""
+        lu, piv, _ = torch.linalg.lu_factor_ex(K)
+        return lu, piv
+
+    def factorize(self, prob, pr_diag, del_c):
+        K = self._assemble(prob.H, prob.A, pr_diag, del_c)
+        if self.blocked:
+            return self._factorize_blocked(K, prob.A.shape[0])
+        lu, piv = self._lu(self._to_fact(K))
+        return K2Factors(lu=lu, piv=piv)
+
+    def solve(self, f, rx, ry):
+        n = rx.shape[0]
+        rhs = torch.cat([rx, ry])
+        if isinstance(f, K2BlockedFactors):
+            rs = rhs * f.scale if f.scale is not None else rhs
+            y = f.iLu @ rs.to(f.iLu.dtype)
+            y = f.iLu.T @ (y / f.d)
+            d = y.to(rx.dtype)
+            if f.scale is not None:
+                d = d * f.scale
+            return d[:n], d[n:]
+        d = torch.linalg.lu_solve(f.lu, f.piv, rhs.to(f.lu.dtype)[:, None])[:, 0]
+        d = d.to(rx.dtype)
+        return d[:n], d[n:]
+
+    def factor_ok(self, f):
+        if isinstance(f, K2BlockedFactors):
+            # pivot-sign inertia check (quasi-definite: +1 x n, -1 x m)
+            return torch.isfinite(f.d).all() & (f.d * f.sgn > 0.0).all()
+        dU = torch.diagonal(f.lu)
+        return torch.isfinite(dU).all() & (dU.abs() > 0.0).all()
+
+
+class DenseK25KKT(DenseK2KKT):
+    """K2.5: augmented system with symmetric Jacobi (sqrt-diagonal) scaling.
+
+    MadNLP ScaledSparseKKTSystem analog: K -> D K D with
+    D = 1/sqrt(max(|diag K|, 1e-8)), and the solution unscaled.
+    """
+
+    name = "k2.5"
+
+    def factorize(self, prob, pr_diag, del_c):
+        K = self._assemble(prob.H, prob.A, pr_diag, del_c)
+        dK = torch.diagonal(K).abs()
+        scale = 1.0 / torch.sqrt(torch.clamp(dK, min=1e-8))
+        Ks = scale[:, None] * K * scale[None, :]
+        if self.blocked:
+            return self._factorize_blocked(Ks, prob.A.shape[0], scale=scale)
+        lu, piv = self._lu(self._to_fact(Ks))
+        return K25Factors(lu=lu, piv=piv, scale=scale)
+
+    def solve(self, f, rx, ry):
+        if isinstance(f, K2BlockedFactors):
+            return DenseK2KKT.solve(self, f, rx, ry)
+        n = rx.shape[0]
+        rhs = (torch.cat([rx, ry]) * f.scale).to(f.lu.dtype)
+        d = torch.linalg.lu_solve(f.lu, f.piv, rhs[:, None])[:, 0]
+        d = d.to(rx.dtype) * f.scale
+        return d[:n], d[n:]
+
+
+# ---------------------------------------------------------------------------
 # Unreduced KKT operator (for residual checks; MadNLP mul! analog)
 # ---------------------------------------------------------------------------
 
@@ -212,13 +431,13 @@ def kkt_mul(prob, del_w, del_c, x, lb, ub, has_lb, has_ub, zl, zu, v):
 _KKT_REGISTRY = {
     "condensed": DenseCondensedKKT,
     "normal": DenseNormalKKT,
+    "k2": DenseK2KKT,
+    "k2.5": DenseK25KKT,
 }
 
 # Formulations the reference package has and this package does not yet,
 # with the ROADMAP.md item that ports each.
 _NOT_PORTED = {
-    "k2": "Queue 1, item 8b",
-    "k2.5": "Queue 1, item 8b",
     "schur": "Queue 1, item 11",
     "sparse-normal": "Queue 1, item 13",
     "sparse-augmented": "Queue 1, item 13",
@@ -236,7 +455,7 @@ def make_kkt(name: str, fact_dtype=None, chol_backend: str = "xla",
     except KeyError:
         raise ValueError(
             f"unknown kkt_system '{name}'; options: "
-            f"{sorted(list(_KKT_REGISTRY) + ['k2', 'k2.5']) + ['schur', 'sparse-normal', 'sparse-augmented']}"
+            f"{sorted(_KKT_REGISTRY) + ['schur', 'sparse-normal', 'sparse-augmented']}"
         )
     return cls(fact_dtype=fact_dtype, chol_backend=chol_backend,
                solve_mode=solve_mode)

@@ -25,24 +25,18 @@ solver's `factor_ok` test and its retry loop read.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
+from . import _build
+
 BLOCK = 32  # block-column width; must equal NB in csrc/cholesky.cu
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "cholesky.cu"
-BUILD_DIR = _PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-
-_lib = None  # the loaded shared library, built at first use
+SOURCE = _build.CSRC_DIR / "cholesky.cu"
+# (A, L, n, stream) -> cudaError_t
+_SIGNATURE = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+              ctypes.c_int)
 
 
 def _check_matrix(A: torch.Tensor) -> int:
@@ -91,64 +85,21 @@ def cholesky_lower_reference(A: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [shutil.which("nvcc")]
-    if cuda_home:
-        candidates.append(os.path.join(cuda_home, "bin", "nvcc"))
-    candidates.append("/usr/local/cuda/bin/nvcc")
-    for path in candidates:
-        if path and os.path.isfile(path):
-            return path
-    raise RuntimeError(
-        "nvcc not found: the K1 Cholesky kernel is compiled from "
-        f"{SOURCE} at first use (set CUDA_HOME or put nvcc on PATH)")
-
-
-def _library_path() -> Path:
-    """Where the kernel library for the current source and flags lives."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libmadqp_chol_{key.hexdigest()[:16]}.so"
-
-
 def build_library() -> Path:
-    """Compile csrc/cholesky.cu with NVCC_FLAGS into BUILD_DIR (skipped when
-    the library for this source already exists)."""
-    out = _library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    """Compile csrc/cholesky.cu into the build directory (skipped when the
+    library for this source already exists); see `_build`."""
+    return _build.build(SOURCE)
 
 
 def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        for name in ("madqp_cholesky_lower_f32", "madqp_cholesky_lower_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.madqp_cholesky_block_size.argtypes = []
-        lib.madqp_cholesky_block_size.restype = ctypes.c_int
-        if lib.madqp_cholesky_block_size() != BLOCK:
-            raise RuntimeError("csrc/cholesky.cu NB differs from BLOCK")
-        _lib = lib
-    return _lib
+    lib = _build.load(SOURCE, {
+        "madqp_cholesky_lower_f32": _SIGNATURE,
+        "madqp_cholesky_lower_f64": _SIGNATURE,
+        "madqp_cholesky_block_size": ([], ctypes.c_int),
+    })
+    if lib.madqp_cholesky_block_size() != BLOCK:
+        raise RuntimeError("csrc/cholesky.cu NB differs from BLOCK")
+    return lib
 
 
 def cholesky_lower(A: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,10 @@ with the default `precision_scheme="two-phase"`) is the reference's dense
 rescue: the low-precision kernel runs with stall detection and at most
 `phase1_max_iter` iterations, and a warm-started full-precision phase
 follows only when it exits unconverged.
+
+`pad_mode="bucket"` pads the standard form to power-of-two shape buckets
+(`parallel.pad_standard`); `autosolve` routes a problem by its shape to the
+dense path, with the blocked backend for large dense problems.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 
 from ..models.qp import QuadraticProblem, build_standard_form
 from ..ops.kkt import torch_dtype
+from ..parallel.batched import pad_standard
 from ..utils import (
     ExecutionStats,
     Counters,
@@ -62,12 +67,12 @@ def _sync(device: torch.device) -> None:
 class MPCSolver:
     """Mehrotra predictor-corrector interior-point solver for LP/QP.
 
-    `device` places the problem and the iterates ("cpu" or a CUDA device).
-    It has no default, so that a solve meant for the card never runs on the
-    host unnoticed.  Every other keyword is a solver option
-    (utils.options.IPMOptions)."""
+    `device` places the problem and the iterates: the CUDA card unless the
+    caller asks for "cpu" (without a card the default raises torch's own
+    error; nothing falls back to the host).  Every other keyword is a
+    solver option (utils.options.IPMOptions)."""
 
-    def __init__(self, qp: QuadraticProblem, *, device, **kwargs):
+    def __init__(self, qp: QuadraticProblem, *, device="cuda", **kwargs):
         self.qp = qp
         self.device = torch.device(device)
         opts, ignored = load_options(**kwargs)
@@ -91,10 +96,6 @@ class MPCSolver:
                 " (the two-stage solver is not ported yet: ROADMAP.md"
                 " Queue 1, item 11)."
             )
-        if opts.pad_mode == "bucket":
-            raise NotImplementedError(
-                "pad_mode='bucket' is not ported yet (ROADMAP.md Queue 1, "
-                "item 9)")
         if self.device.type == "cuda":
             # The float32 factorization path's accuracy rests on full-f32
             # products followed by float64 refinement: keep TF32 off for
@@ -120,6 +121,21 @@ class MPCSolver:
             if opts.rethrow_error:
                 raise
             return
+        if opts.pad_mode == "bucket":
+            # Pad to power-of-two shape buckets (stats recovery slices back
+            # via info).
+            def bucket(v, lo=32):
+                b = lo
+                while b < v:
+                    b *= 2
+                return b
+
+            m_tot = bucket(self.std.m) if self.std.m else 0
+            n_tot = bucket(self.std.n + (m_tot - self.std.m))
+            self.std, x0_int, y0_int = pad_standard(
+                self.std, x0_int, y0_int, n_tot, m_tot,
+                force_H=self.std.H is not None,
+            )
         dtype = torch_dtype(opts.dtype)
         self.prob, lb, ub = S.problem_to_device(self.std, dtype, self.device)
         self._lb0, self._ub0 = lb, ub
@@ -309,9 +325,18 @@ class MPCSolver:
             zl_int[info.n_kept:] = np.maximum(-ys, 0.0)
             zu_int[info.n_kept:] = np.maximum(ys, 0.0)
 
+        # Under pad_mode="bucket" the internal problem is larger than
+        # (info.n, info.m): padding variables start at 0 with unit bound
+        # duals, padding rows with zero multipliers.
+        n_tot, m_tot = self.prob.n, self.prob.m
+
+        def pad(v, size, fill):
+            return np.concatenate([v, np.full(size - len(v), fill)])
+
         self._warm_point = tuple(
             torch.as_tensor(v, dtype=dtype, device=self.device)
-            for v in (x_int, y_int, zl_int, zu_int))
+            for v in (pad(x_int, n_tot, 0.0), pad(y_int, m_tot, 0.0),
+                      pad(zl_int, n_tot, 1.0), pad(zu_int, n_tot, 1.0)))
         return self
 
     def clear_initial_point(self):
@@ -441,16 +466,37 @@ def _opts_dict(opts: IPMOptions) -> dict:
     return {f.name: getattr(opts, f.name) for f in dataclasses.fields(opts)}
 
 
-def solve(qp: QuadraticProblem, *, device, **kwargs) -> ExecutionStats:
+def solve(qp: QuadraticProblem, *, device="cuda", **kwargs) -> ExecutionStats:
     """One-shot convenience: build an MPCSolver on `device` and run it."""
     return MPCSolver(qp, device=device, **kwargs).solve()
 
 
-def autosolve(qp: QuadraticProblem, dense_limit: int = 1500,
+def autosolve(qp: QuadraticProblem, *, device="cuda", dense_limit: int = 1500,
               **kwargs) -> ExecutionStats:
-    """Route to the best device path by problem shape (reference
-    `madqp_tpu.autosolve`).  Not ported yet: its routes need the blocked
-    backend, shape bucketing and the sparse paths."""
+    """Route to a device path by problem shape (the JAX package's routing;
+    its `dense_limit` was tuned on a TPU and is not re-measured here).
+
+    - small (internal dim n + m <= dense_limit) or dense data -> the
+      bucket-padded dense path (`solve`), with the blocked backend (panel
+      Cholesky with K8 trailing updates, inverse factors, matvec
+      backsolves) once the internal dimension reaches 2048;
+    - large + sparse -> the sparse device paths, which are not ported yet
+      (ROADMAP.md Queue 1, item 13): this raises rather than sending the
+      problem down the dense route.
+    """
+    m, n = qp.A.shape
+    # internal dimension after slacking every range/inequality row
+    internal = n + m
+    density = qp.A.nnz / max(1, m * n)
+    nnz_h = qp.H.nnz if qp.H is not None else 0
+    dense_h = qp.H is not None and nnz_h > 0.25 * n * n
+    if internal <= dense_limit or density > 0.25 or dense_h:
+        kwargs.setdefault("pad_mode", "bucket")
+        if internal >= 2048:
+            kwargs.setdefault("linear_solver", "blocked")
+        return solve(qp, device=device, **kwargs)
     raise NotImplementedError(
-        "autosolve is not ported yet (ROADMAP.md Queue 1, item 8d); "
-        "call solve() with explicit options")
+        f"autosolve routes this large sparse problem (n={n}, m={m}, "
+        f"A density {density:.2g}) to the sparse device paths, which are not "
+        "ported yet (ROADMAP.md Queue 1, item 13); call solve() to run it "
+        "on the dense path")

@@ -112,8 +112,9 @@ class IPMState(NamedTuple):
 
 
 def problem_to_device(std: StandardQP, dtype: torch.dtype,
-                      device) -> tuple[ProblemArrays, torch.Tensor, torch.Tensor]:
-    """Move a StandardQP to tensors of `dtype` on `device`.
+                      device="cuda") -> tuple[ProblemArrays, torch.Tensor, torch.Tensor]:
+    """Move a StandardQP to tensors of `dtype` on `device` (the CUDA card
+    unless the caller asks for the CPU).
 
     Returns (prob, lb, ub) — bounds separately since they are state.
     """

@@ -1,5 +1,6 @@
-"""Tests that need a CUDA card: the K1 kernel against its plain version,
-and the port's solve on the card against the same solve on the CPU.
+"""Tests that need a CUDA card: the K1 and K8 kernels against their plain
+versions, and the port's solves on the card against the same solves on the
+CPU.
 
 They skip without a card.  This file imports no JAX (the card's machine has
 none); run it there without the repository's conftest, which imports JAX:
@@ -13,6 +14,7 @@ import torch
 
 import madqp_tpu_torch as mt
 from madqp_tpu_torch.ops import pallas_chol as K1
+from madqp_tpu_torch.ops import syrk as K8
 
 pytestmark = pytest.mark.cuda
 
@@ -20,7 +22,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -90,3 +92,73 @@ def test_solve_on_card_matches_cpu(cuda, fact):
     assert got.iter == want.iter
     assert got.objective == pytest.approx(want.objective, rel=1e-10 if not fact else 1e-8)
     assert launches >= 2 * got.counters.factorizations
+
+
+def syrk_inputs(r, c, k, dtype, seed):
+    rng = np.random.default_rng(seed)
+    C = torch.as_tensor(rng.standard_normal((r, c)), dtype=dtype, device="cuda")
+    B = torch.as_tensor(rng.standard_normal((r, k)) / np.sqrt(max(k, 1)),
+                        dtype=dtype, device="cuda")
+    return C, B
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("r,c,k", [
+    (1, 1, 1), (37, 37, 5), (64, 64, 16), (65, 33, 17), (300, 200, 40),
+    (96, 96, 0), (1024, 1024, 256), (2304, 2048, 256), (256, 256, 2048),
+])
+def test_syrk_kernel_matches_plain(cuda, r, c, k, dtype, tol):
+    """max|out - plain| / max|plain| within the smoke's tolerances; one
+    launch counted per call; the inputs are left unchanged."""
+    C, B = syrk_inputs(r, c, k, dtype, seed=r + c + k)
+    C0, B0 = C.clone(), B.clone()
+    before = K8.syrk_update.launches
+    out = K8.syrk_update(C, B)
+    torch.cuda.synchronize()
+    assert K8.syrk_update.launches == before + 1
+    plain = K8.syrk_update_reference(C, B)
+    assert out.shape == (r, c) and out.dtype == dtype
+    assert float((out - plain).abs().max()) <= tol * float(plain.abs().max())
+    assert torch.equal(C, C0) and torch.equal(B, B0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r,c,k,row", [(37, 37, 5, 11), (300, 200, 40, 250),
+                                       (130, 130, 16, 0)])
+def test_syrk_kernel_nan_contract(cuda, r, c, k, row, dtype):
+    """A NaN in one row of B reaches that row and (when it is one) that
+    column of the output, as in the plain version, and nothing else."""
+    C, B = syrk_inputs(r, c, k, dtype, seed=7)
+    B[row, k // 2] = float("nan")
+    nan = torch.isnan(K8.syrk_update(C, B))
+    assert torch.equal(nan, torch.isnan(K8.syrk_update_reference(C, B)))
+    assert bool(nan[row].all())
+    assert int(nan.sum()) == c + (r - 1 if row < c else 0)
+
+
+def test_syrk_kernel_is_deterministic(cuda):
+    C, B = syrk_inputs(500, 500, 64, torch.float32, seed=3)
+    assert torch.equal(K8.syrk_update(C, B), K8.syrk_update(C, B))
+
+
+def test_syrk_kernel_rejects_non_contiguous(cuda):
+    C = torch.zeros((8, 8), dtype=torch.float64, device=cuda)
+    B = torch.zeros((4, 8), dtype=torch.float64, device=cuda).T
+    with pytest.raises(ValueError, match="contiguous"):
+        K8.syrk_update(C, B)
+
+
+def test_blocked_solve_on_card_matches_cpu(cuda):
+    """The bucketed blocked solve (W 1024^2: four K8 updates per
+    factorization of W) on the card and on the CPU."""
+    kw = dict(print_level=40, linear_solver="blocked", pad_mode="bucket",
+              factorization_dtype="float32", max_refine_steps=1)
+    qp = mt.random_qp(1000, 10, seed=1, ineq=False)
+    before = K8.syrk_update.launches
+    got = mt.solve(qp, device=cuda, **kw)
+    launches = K8.syrk_update.launches - before
+    want = mt.solve(qp, device="cpu", **kw)
+    assert got.success and want.success
+    assert abs(got.iter - want.iter) <= 1
+    assert got.objective == pytest.approx(want.objective, rel=1e-8)
+    assert launches == 4 * got.counters.factorizations > 0

@@ -78,11 +78,15 @@ def test_infeasible_problem_certified_like_reference():
 
 
 def test_device_is_required():
-    """No default device: a solve meant for the card never lands on the
-    host unnoticed."""
-    with pytest.raises(TypeError, match="device"):
+    """The default device is the CUDA card, so a solve meant for the card
+    never lands on the host unnoticed: without a card the entry points
+    raise torch's own error; with one they place the problem there."""
+    if torch.cuda.is_available():
+        assert mt.MPCSolver(mt.simple_lp(), print_level=40).prob.c.is_cuda
+        return
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         mt.solve(mt.simple_lp(), print_level=40)
-    with pytest.raises(TypeError, match="device"):
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         mt.MPCSolver(mt.simple_lp(), print_level=40)
 
 

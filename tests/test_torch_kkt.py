@@ -141,9 +141,12 @@ def test_kkt_mul_matches_reference():
 
 def test_make_kkt_names():
     assert TKKT.make_kkt("condensed").name == "condensed"
-    with pytest.raises(ValueError, match="unknown kkt_system"):
+    assert TKKT.make_kkt("k2").name == "k2"
+    assert TKKT.make_kkt("k2.5").name == "k2.5"
+    with pytest.raises(ValueError, match="unknown kkt_system") as got:
         TKKT.make_kkt("nope")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        TKKT.make_kkt("k2")
+    with pytest.raises(ValueError, match="unknown kkt_system") as want:
+        JKKT.make_kkt("nope")
+    assert str(got.value) == str(want.value)
     with pytest.raises(NotImplementedError, match="item 11"):
         TKKT.make_kkt("schur")

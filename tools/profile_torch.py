@@ -7,11 +7,12 @@ Run from the root of a checkout:
 
 For the n = 500 headline QP (`random_qp(500, 200)`, with
 `linear_solver="pallas"` and `"dense"`) and the n = 2000 QP
-(`random_qp(2000, 1000)`, pallas only), all with the headline options:
-times unprofiled solves on the host clock after one warm-up solve, then
-profiles one solve with torch.profiler and sums kernel time by layer
-(K1, library Cholesky, triangular solves, matmul, reductions,
-elementwise).  The idle share is 1 - (sum of kernel times) / (wall of the
+(`random_qp(2000, 1000)`, through `solve` with pallas and through
+`autosolve`, which buckets it to W 4096^2 / S 1024^2 and takes the blocked
+backend), all with the headline options: times unprofiled solves on the
+host clock after one warm-up solve, then profiles one solve with
+torch.profiler and sums kernel time by layer (K1, K8, library Cholesky,
+triangular solves, matmul, reductions, elementwise).  The idle share is 1 - (sum of kernel times) / (wall of the
 profiled solve): the solve runs on one stream, so kernels do not overlap,
 and the profiler's host overhead inflates the wall, so the share is an
 upper bound.  `init_s` is the solve's set-up (standard form and upload)
@@ -31,7 +32,8 @@ from pathlib import Path
 LAYERS = (
     ("K1 cholesky (factorize)", ("copy_lower", "diag_factor", "panel_solve",
                                  "trailing_update")),
-    ("library cholesky (factorize)", ("potrf",)),
+    ("K8 syrk_update (panel Cholesky trailing update)", ("syrk_update",)),
+    ("library cholesky (factorize)", ("potrf", "getrf_wo_pivot", "trf4_set_info")),
     ("triangular solves (cholesky_solve)", ("trsv", "trsm")),
     ("matmul / matvec", ("gemm", "gemv", "cutlass", "xmma", "dot_kernel")),
     ("reductions", ("reduce",)),
@@ -49,34 +51,35 @@ def layer_of(kernel_name):
     return "other: " + kernel_name[:60]
 
 
-def solve(torch, mt, qp, linear_solver):
+def solve(torch, mt, qp, entry, options):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    st = mt.solve(qp, device="cuda", linear_solver=linear_solver,
-                  step_rule=mt.AdaptiveStep(0.995),
-                  regularization=mt.FixedRegularization(1e-8, -1e-8), **HEADLINE)
+    st = getattr(mt, entry)(qp, device="cuda", step_rule=mt.AdaptiveStep(0.995),
+                            regularization=mt.FixedRegularization(1e-8, -1e-8),
+                            **HEADLINE, **options)
     torch.cuda.synchronize()
     if not st.success:
-        raise RuntimeError(f"{qp.name} [{linear_solver}]: {st.status.name}")
+        raise RuntimeError(f"{qp.name} [{entry} {options}]: {st.status.name}")
     return st, time.perf_counter() - t0
 
 
-def profile_cell(torch, mt, shape, seeds, linear_solver):
-    """`random_qp(*shape, seed)` for each of `seeds`, then seeds[0] profiled."""
+def profile_cell(torch, mt, shape, seeds, entry="solve", **options):
+    """`random_qp(*shape, seed)` for each of `seeds` through `mt.<entry>`
+    with `options`, then seeds[0] profiled."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def make(seed):
         return mt.random_qp(*shape, seed=seed, ineq=True)
 
-    solve(torch, mt, make(seeds[0]), linear_solver)  # warm-up
+    solve(torch, mt, make(seeds[0]), entry, options)  # warm-up
     runs = []
     for seed in seeds:
-        st, wall = solve(torch, mt, make(seed), linear_solver)
+        st, wall = solve(torch, mt, make(seed), entry, options)
         runs.append({"seed": seed, "wall_s": wall, "iters": st.iter,
                      "init_s": st.counters.init_time})
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        st, wall = solve(torch, mt, make(seeds[0]), linear_solver)
+        st, wall = solve(torch, mt, make(seeds[0]), entry, options)
     busy_us, launches = collections.Counter(), collections.Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -115,9 +118,14 @@ def main():
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(card)
     record = {"card": card, "cells": {
-        "n500_pallas": profile_cell(torch, mt, (500, 200), (1, 2, 3, 1, 2, 3), "pallas"),
-        "n500_dense": profile_cell(torch, mt, (500, 200), (1, 2, 3, 1, 2, 3), "dense"),
-        "n2000_pallas": profile_cell(torch, mt, (2000, 1000), (0, 0, 0), "pallas"),
+        "n500_pallas": profile_cell(torch, mt, (500, 200), (1, 2, 3, 1, 2, 3),
+                                    linear_solver="pallas"),
+        "n500_dense": profile_cell(torch, mt, (500, 200), (1, 2, 3, 1, 2, 3),
+                                   linear_solver="dense"),
+        "n2000_pallas": profile_cell(torch, mt, (2000, 1000), (0, 0, 0),
+                                     linear_solver="pallas"),
+        "n2000_autosolve": profile_cell(torch, mt, (2000, 1000), (0, 0, 0),
+                                        entry="autosolve"),
     }}
     with open(args.out, "w") as fh:
         json.dump(record, fh, indent=1)
