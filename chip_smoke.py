@@ -23,7 +23,8 @@ Phases (each raises on failure, so any failure exits non-zero):
               1e-12; a NaN in one row of B gives NaN in the same places in
               both), and CUDA-event timings of the kernel, the plain
               version and torch.addmm at the blocked path's shapes
-              (SYRK_PATH);
+              (SYRK_PATH), beside the bound of the work the update
+              needs (syrk_ops);
   7. blocked  madqp_tpu_torch.autosolve on random_qp(2000, 1000): bucketing
               pads it to W 4096 x 4096 and S 1024 x 1024 and picks
               linear_solver="blocked", whose panel Cholesky runs K8 for
@@ -298,38 +299,53 @@ def syrk_phase(torch, k8):
                     "torch.addmm": cuda_median_ms(
                         torch, lambda: torch.addmm(C, B, Bc, beta=1, alpha=-1)),
                 }
-                bound, by = bound_ms(2.0 * r * c * k,
-                                     (2 * r * c + r * k) * C.element_size(), dname)
+                ops = syrk_ops(r, c, k)
+                bound, by = bound_ms(ops, (2 * r * c + r * k) * C.element_size(),
+                                     dname)
                 t["bound"], t["bound_by"] = bound, by
                 timings[(dname, (r, c, k))] = t
                 print(f"  time {dname} {(r, c, k)} (median of {TIMING_RUNS}, ms): "
                       + ", ".join(f"{key}={v:.4f}" for key, v in t.items()
                                   if key != "bound_by")
-                      + f" ({by}); kernel {2.0 * r * c * k / t['kernel'] / 1e9:.2f}"
-                        " TFLOP/s")
+                      + f" ({by}); {ops / 1e9:.3f} GFLOP needed, kernel "
+                        f"{ops / t['kernel'] / 1e9:.2f} TFLOP/s of them")
     return path_err, timings
 
 
+def syrk_ops(r, c, k):
+    """Operations C - B B[:c]^T needs: the top (c, c) block of the product
+    is symmetric, so only its lower triangle (c (c + 1) k) and the (r - c,
+    c) block below it (2 (r - c) c k) have to be computed."""
+    return float(c * (c + 1) * k + 2 * (r - c) * c * k)
+
+
 def panel_updates(n, panel=256, outer=2048):
-    """K8 launches and their operations in one panel_chol of order n
-    (ops/blocked_dense.py): per stripe of width w over h rows, one
-    (h, w, panel) in-stripe update per panel, and one (h - w, h - w, w)
-    cross-stripe update when rows remain below the stripe."""
+    """K8 launches in one panel_chol of order n (ops/blocked_dense.py), and
+    the operations its trailing updates need.  Per stripe of width w over h
+    rows: one in-stripe update per panel, whose B is zero above the
+    panel's last row, so it needs only the (h - c0 - panel, w - c0 - panel)
+    block below and right of the panel at c0; and one (h - w, h - w, w)
+    cross-stripe update when rows remain below the stripe.  Together that
+    is the Cholesky's own trailing-update work: the sum over panels of
+    t (t + 1) panel, for t the order of the matrix left after the panel."""
     npad = -(-n // panel) * panel
     count, flops, j0 = 0, 0.0, 0
     while j0 < npad:
         w = min(outer, npad - j0)
         h = npad - j0
-        count += w // panel
-        flops += (w // panel) * 2.0 * h * w * panel
+        for c0 in range(0, w, panel):
+            count += 1
+            flops += syrk_ops(h - c0 - panel, w - c0 - panel, panel)
         if h > w:
             count += 1
-            flops += 2.0 * (h - w) ** 2 * w
+            flops += syrk_ops(h - w, h - w, w)
         j0 += w
     return count, flops
 
 
 def blocked_phase(mt, k1, k8, ref):
+    from madqp_tpu_torch.solver.driver import bucket_shape
+
     phase("7. blocked main path: autosolve(random_qp(2000, 1000))")
     qp = mt.random_qp(2000, 1000, seed=0)
     reset_counts(k1, k8)
@@ -337,15 +353,18 @@ def blocked_phase(mt, k1, k8, ref):
                        iter_slack=1)
     launches = k8.syrk_update.launches
     fact = st.counters.factorizations
-    padded = mt.MPCSolver(qp, device="cuda", pad_mode="bucket",
-                          print_level=40).prob
+    # The orders the bucketed path factors: the standard form's sizes
+    # through the bucket rule.
+    info = mt.build_standard_form_sparse(qp)[1]
+    n_tot, m_tot = bucket_shape(info.n, info.m)
     (w_launches, w_flops), (s_launches, s_flops) = (
-        panel_updates(padded.n), panel_updates(padded.m))
+        panel_updates(n_tot), panel_updates(m_tot))
     per_trial = w_launches + s_launches
     bound, by = bound_ms(w_flops + s_flops, 0.0, "float32")
-    print(f"  bucketed W {padded.n}^2, S {padded.m}^2: K8 launches {launches} "
+    print(f"  bucketed W {n_tot}^2, S {m_tot}^2: K8 launches {launches} "
           f"for {fact} factorization trials ({per_trial} per trial expected, "
-          f"{(w_flops + s_flops) / 1e9:.2f} GFLOP per trial, float32 bound "
+          f"{(w_flops + s_flops) / 1e9:.2f} GFLOP of trailing update needed "
+          f"per trial, float32 bound "
           f"{bound:.4f} ms ({by})); K1 launches {k1.cholesky_lower.launches}")
     check(launches >= 12 * fact > 0, f"K8 launched {launches} times")
     check(launches == per_trial * fact, "K8 launch count off the panel structure")

@@ -10,10 +10,13 @@
 // function and the cross-stripe update; the rectangular case c < r is the
 // in-stripe update of a stripe narrower than the trailing matrix.
 //
-// What bounds it: 2 r c k operations against (2 r c + r k) elements of
-// traffic.  At the path's shapes (r = c = 2048, k = 256) that is 2.15 GFLOP
-// against 36 MB in float32, about 32 us at the card's 67 TFLOP/s on CUDA
-// cores and 11 us at 3.35 TB/s: it is bound by operations.  The design
+// What bounds it: the function needs c (c + 1) k + 2 (r - c) c k operations
+// (the top c x c block of B B[:c]^T is symmetric) against (2 r c + r k)
+// elements of traffic.  At r = c = 2048, k = 256 that is 1.07 GFLOP against
+// 36 MB in float32, about 16 us at the card's 67 TFLOP/s on CUDA cores and
+// 11 us at 3.35 TB/s: it is bound by operations.  This simple kernel does
+// all 2 r c k of the full tiles, both halves of the symmetric block
+// included, and the zero rows of a masked B as well.  The design
 // keeps every B element that a CTA reads in shared memory for TILE uses and
 // every partial sum in registers:
 //

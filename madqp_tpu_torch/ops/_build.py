@@ -75,12 +75,14 @@ def build(source: Path) -> Path:
     return out
 
 
-def load(source: Path, signatures: dict) -> ctypes.CDLL:
+def load(source: Path, signatures: dict, check=None) -> ctypes.CDLL:
     """Build `source` if needed and load it once per process.
 
     `signatures` maps each exported C function to (argtypes, restype); they
     are declared on first load, so a pointer is never passed as a 32-bit
-    int."""
+    int.  `check(lib)`, if given, runs once on first load and raises if
+    the library does not fit its wrapper; a library that fails it is not
+    kept."""
     lib = _loaded.get(source)
     if lib is None:
         lib = ctypes.CDLL(str(build(source)))
@@ -88,5 +90,7 @@ def load(source: Path, signatures: dict) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = restype
+        if check is not None:
+            check(lib)
         _loaded[source] = lib
     return lib

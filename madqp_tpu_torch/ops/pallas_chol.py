@@ -37,6 +37,11 @@ SOURCE = _build.CSRC_DIR / "cholesky.cu"
 # (A, L, n, stream) -> cudaError_t
 _SIGNATURE = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
               ctypes.c_int)
+_SIGNATURES = {
+    "madqp_cholesky_lower_f32": _SIGNATURE,
+    "madqp_cholesky_lower_f64": _SIGNATURE,
+    "madqp_cholesky_block_size": ([], ctypes.c_int),
+}
 
 
 def _check_matrix(A: torch.Tensor) -> int:
@@ -91,15 +96,13 @@ def build_library() -> Path:
     return _build.build(SOURCE)
 
 
-def _library():
-    lib = _build.load(SOURCE, {
-        "madqp_cholesky_lower_f32": _SIGNATURE,
-        "madqp_cholesky_lower_f64": _SIGNATURE,
-        "madqp_cholesky_block_size": ([], ctypes.c_int),
-    })
+def _check_block(lib) -> None:
     if lib.madqp_cholesky_block_size() != BLOCK:
         raise RuntimeError("csrc/cholesky.cu NB differs from BLOCK")
-    return lib
+
+
+def _library():
+    return _build.load(SOURCE, _SIGNATURES, check=_check_block)
 
 
 def cholesky_lower(A: torch.Tensor) -> torch.Tensor:

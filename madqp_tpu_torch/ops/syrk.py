@@ -33,6 +33,8 @@ SOURCE = _build.CSRC_DIR / "syrk.cu"
 # (C, B, out, r, c, k, stream) -> cudaError_t
 _SIGNATURE = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
+_SIGNATURES = {"madqp_syrk_update_f32": _SIGNATURE,
+               "madqp_syrk_update_f64": _SIGNATURE}
 
 
 def _check(C: torch.Tensor, B: torch.Tensor) -> None:
@@ -63,8 +65,7 @@ def build_library() -> Path:
 
 
 def _library():
-    return _build.load(SOURCE, {"madqp_syrk_update_f32": _SIGNATURE,
-                                "madqp_syrk_update_f64": _SIGNATURE})
+    return _build.load(SOURCE, _SIGNATURES)
 
 
 def syrk_update(C: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

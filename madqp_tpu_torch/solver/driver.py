@@ -64,6 +64,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def bucket_shape(n: int, m: int, lo: int = 32) -> tuple[int, int]:
+    """(n_tot, m_tot) of `pad_mode="bucket"` for a standard form with n
+    variables and m rows: m rounded up to a power of two (at least `lo`,
+    0 stays 0), then n plus one padding variable per added row, rounded
+    the same way."""
+    def bucket(v):
+        b = lo
+        while b < v:
+            b *= 2
+        return b
+
+    m_tot = bucket(m) if m else 0
+    return bucket(n + (m_tot - m)), m_tot
+
+
 class MPCSolver:
     """Mehrotra predictor-corrector interior-point solver for LP/QP.
 
@@ -124,14 +139,7 @@ class MPCSolver:
         if opts.pad_mode == "bucket":
             # Pad to power-of-two shape buckets (stats recovery slices back
             # via info).
-            def bucket(v, lo=32):
-                b = lo
-                while b < v:
-                    b *= 2
-                return b
-
-            m_tot = bucket(self.std.m) if self.std.m else 0
-            n_tot = bucket(self.std.n + (m_tot - self.std.m))
+            n_tot, m_tot = bucket_shape(self.std.n, self.std.m)
             self.std, x0_int, y0_int = pad_standard(
                 self.std, x0_int, y0_int, n_tot, m_tot,
                 force_H=self.std.H is not None,
@@ -474,7 +482,8 @@ def solve(qp: QuadraticProblem, *, device="cuda", **kwargs) -> ExecutionStats:
 def autosolve(qp: QuadraticProblem, *, device="cuda", dense_limit: int = 1500,
               **kwargs) -> ExecutionStats:
     """Route to a device path by problem shape (the JAX package's routing;
-    its `dense_limit` was tuned on a TPU and is not re-measured here).
+    its `dense_limit` and blocked switch were tuned on a TPU and are not
+    re-measured here: ROADMAP.md Queue 1, item 16).
 
     - small (internal dim n + m <= dense_limit) or dense data -> the
       bucket-padded dense path (`solve`), with the blocked backend (panel

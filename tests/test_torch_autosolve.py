@@ -73,6 +73,18 @@ def test_pad_standard_bit_equal(problem, n_tot, m_tot, force_H):
     np.testing.assert_array_equal(got[2], want[2])
 
 
+@pytest.mark.parametrize("problem", [
+    lambda pkg: pkg.random_qp(30, 12, seed=3),
+    lambda pkg: pkg.random_qp(40, 40, seed=2, ineq=False),
+    lambda pkg: pkg.dense_dummy_qp(12, 6, seed=2),
+    lambda pkg: pkg.random_lp(20, 8, seed=1),
+])
+def test_bucket_shape_matches_reference(problem):
+    want = mq.MPCSolver(problem(mq), print_level=40, pad_mode="bucket").prob
+    _, info, _, _ = port_standard_form(problem(mt))
+    assert port_driver.bucket_shape(info.n, info.m) == (want.n, want.m)
+
+
 def test_pad_standard_rejects_more_rows_than_variables():
     std, _, x0, y0 = port_standard_form(mt.random_qp(30, 12, seed=3))
     with pytest.raises(ValueError, match="one padding variable per padding row"):
