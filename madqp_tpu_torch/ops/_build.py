@@ -3,9 +3,13 @@
 Each `csrc/*.cu` file has a plain C interface and is compiled on its own
 with `nvcc` into a shared library under `madqp_tpu_torch/_build/`, at first
 use, and loaded with ctypes.  The library's name carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale library
-is never loaded.  The flags are fixed: a debug or fast-math build can never
-be cached under the release build's name.
+source, of every `csrc/` header it includes (`#include "name.cuh"`,
+followed through the headers), and of the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.  The flags are
+fixed: a debug or fast-math build can never be cached under the release
+build's name.  They include `-Xptxas -v`, which changes no code: ptxas's
+report of each kernel's registers, shared memory and spills is kept beside
+the library (`build_log`).
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,7 +27,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: dict = {}  # source path -> ctypes.CDLL, loaded once per process
 
@@ -43,11 +49,33 @@ def nvcc() -> str:
         f"{CSRC_DIR} at first use (set CUDA_HOME or put nvcc on PATH)")
 
 
+def sources(source: Path) -> list:
+    """`source` and every header beside it that it includes, directly or
+    through another header, in the order first met."""
+    found = [source]
+    for path in found:
+        for name in _INCLUDE.findall(path.read_text()):
+            header = path.parent / name
+            if header.is_file() and header not in found:
+                found.append(header)
+    return found
+
+
 def library_path(source: Path) -> Path:
-    """Where the library for `source` at the current contents and flags
-    lives."""
-    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the library for `source` at the current contents of it and
+    its headers, and the flags, lives."""
+    key = hashlib.sha256()
+    for path in sources(source):
+        key.update(path.name.encode() + b"\0" + path.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libmadqp_{source.stem}_{key.hexdigest()[:16]}.so"
+
+
+def build_log(source: Path) -> str:
+    """nvcc's output (ptxas's per-kernel report) from building the current
+    library of `source`; empty if it was not built by this checkout."""
+    log = library_path(source).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build(source: Path) -> Path:
@@ -68,6 +96,7 @@ def build(source: Path) -> Path:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                 f"{proc.stdout}{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

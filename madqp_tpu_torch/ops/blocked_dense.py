@@ -17,7 +17,8 @@ dims w x w):
     or `panel_chol` for large 2-D inputs.
   * `inv_unit_lower` / `inv_lower` - blocked triangular inversion.
   * `panel_chol`       - two-level right-looking Cholesky for large SPD
-    matrices; both of its trailing updates are K8 (`syrk.syrk_update`).
+    matrices; both of its trailing updates are K8 (`syrk.syrk_update`),
+    whose launches `panel_update_shapes` lists.
   * `panel_inv_lower` / `panel_inv_unit_lower` / `panel_ldl` - the
     right-looking large-n forms.
   * `factor_inv_chol` / `chol_explicit_inverse` - factor plus the explicit
@@ -148,60 +149,68 @@ def _chol_block(D):
     return Lp, iLp
 
 
+def _stripes(npad: int, outer: int):
+    """(j0, width) of each outer stripe of a padded order npad."""
+    return [(j0, min(outer, npad - j0)) for j0 in range(0, npad, outer)]
+
+
 def panel_chol(F, panel: int = PANEL, outer: int = OUTER):
     """Two-level right-looking Cholesky for LARGE (n, n) SPD matrices:
     returns the lower NON-unit factor L with F = L L'.
 
     Level 1: stripes of `outer` columns; after a stripe is factored, one
-    right-sized K8 update of the trailing square.  Level 2: `panel`-column
-    steps inside the stripe, each a library Cholesky + triangular inverse
-    of the diagonal block plus a stripe-width masked rank-panel K8 update.
+    K8 update of the trailing square.  Level 2: `panel`-column steps
+    inside the stripe, each a library Cholesky + triangular inverse of the
+    diagonal block, the panel's factor column Z below it, and one K8
+    update of the stripe's block right of and below the panel.
 
-    The in-stripe update is S - Zb Lwb' with Lwb the first w rows of the
-    panel's factor column masked above row c0 + panel, which is Zb[:w]
-    (both are zero there), so it is `syrk_update(S, Zb)` with S (h, w).
+    The JAX package updates the whole (h, w) stripe with a masked Zb that
+    is zero above row c0 + panel, and takes Zb[:w] for the masked Lwb; so
+    only S[c0 + panel:, c0 + panel:] changes, and here Z is computed for
+    those rows only and K8 updates that block alone.  Every update works
+    in place on views of one working copy of the (padded) matrix: no
+    stripe or trailing square is copied.  The last panel of a stripe
+    leaves nothing to update and launches nothing; `panel_update_shapes`
+    lists the launches.
 
     NaN from a non-SPD input propagates through the panel Cholesky and is
     caught by the caller's factor_ok check."""
     n = F.shape[-1]
-    dtype, device = F.dtype, F.device
     npad = -(-n // panel) * panel
-    F = _pad_identity(F, npad)
-    zero = _zero(F)
-
-    stripes = []          # (j0, width) per stripe
-    j0 = 0
-    while j0 < npad:
-        w = min(outer, npad - j0)
-        stripes.append((j0, w))
-        j0 += w
-
-    def factor_stripe(S, h, w):
-        """Factor the leading w columns of the (h, w) trailing stripe.
-        Rows of stripe column c live at row index c (the stripe starts at
-        the diagonal).  Returns the (h, w) factor block-column."""
-        rows = torch.arange(h, device=device)
-        Lst = torch.zeros((h, w), dtype=dtype, device=device)
+    T = _pad_identity(F, npad)
+    if T is F:
+        T = F.clone()  # the updates below work in place
+    L = torch.zeros((npad, npad), dtype=F.dtype, device=F.device)
+    for j0, w in _stripes(npad, outer):
+        S = T[:, :w]                 # the (h, w) stripe, h = npad - j0
+        Lst = L[j0:, j0:j0 + w]      # its factor block-column
         for c0 in range(0, w, panel):
-            D = S[c0:c0 + panel, c0:c0 + panel]
-            Lp, iLp = _chol_block(D)
-            Z = S[:, c0:c0 + panel] @ iLp.T
-            Zb = torch.where((rows >= c0 + panel)[:, None], Z, zero)
-            S = syrk_update(S, Zb)
-            Lst[:, c0:c0 + panel] = Zb
-            Lst[c0:c0 + panel, c0:c0 + panel] = Lp
-        return Lst
-
-    T = F
-    L = torch.zeros((npad, npad), dtype=dtype, device=device)
-    for j0, w in stripes:
-        h = npad - j0
-        Lst = factor_stripe(T[:, :w].contiguous(), h, w)
-        L[j0:, j0:j0 + w] = Lst
-        if h > w:
-            Lb = Lst[w:, :].contiguous()
-            T = syrk_update(T[w:, w:].contiguous(), Lb)
+            c1 = c0 + panel
+            Lp, iLp = _chol_block(S[c0:c1, c0:c1])
+            Z = S[c1:, c0:c1] @ iLp.T
+            if c1 < w:
+                syrk_update(S[c1:, c1:], Z, out=S[c1:, c1:])
+            Lst[c1:, c0:c1] = Z
+            Lst[c0:c1, c0:c1] = Lp
+        if T.shape[0] > w:
+            syrk_update(T[w:, w:], Lst[w:], out=T[w:, w:])
+            T = T[w:, w:]
     return L[:n, :n]
+
+
+def panel_update_shapes(n: int, panel: int = PANEL, outer: int = OUTER):
+    """(r, c, k) of every K8 launch of one `panel_chol` of order n, in
+    order: per stripe of width w over h rows, one (h - c1, w - c1, panel)
+    in-stripe update for each panel that ends at c1 < w, and one
+    (h - w, h - w, w) cross-stripe update when rows remain below it."""
+    npad = -(-n // panel) * panel
+    shapes = []
+    for j0, w in _stripes(npad, outer):
+        h = npad - j0
+        shapes += [(h - c1, w - c1, panel) for c1 in range(panel, w, panel)]
+        if h > w:
+            shapes.append((h - w, h - w, w))
+    return shapes
 
 
 def panel_inv_lower(L, unit: bool = False, panel: int = PANEL):

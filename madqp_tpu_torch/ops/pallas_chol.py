@@ -4,14 +4,15 @@ factor selection used by the KKT layer.
 Port of `madqp_tpu/ops/pallas_chol.py`.  The TPU kernel
 (`pallas_cholesky`) keeps the whole padded matrix in VMEM; on Hopper the
 matrix stays in device memory and the right-looking blocked algorithm runs
-as three launches per 32-column block (see `csrc/cholesky.cu` for the
-design and what bounds it).
+over 64-column blocks in one persistent cooperative launch (see
+`csrc/cholesky.cu` for the design and what bounds it).
 
 * `cholesky_lower(A)` is the wrapper.  A CUDA tensor always launches the
   hand-written kernel or raises; a CPU tensor goes to the plain version.
   `cholesky_lower.launches` counts the kernel's factorizations.
-* `cholesky_lower_reference(A)` is the plain version: the same blocking and
-  the same per-column sweep in PyTorch ops, on any device.
+* `cholesky_lower_reference(A)` is the plain version: the same blocking,
+  the same per-column sweep of the diagonal block (which also inverts it)
+  and the same panel solve by the inverse, in PyTorch ops, on any device.
 * `select_cholesky(backend)` returns the factor function the KKT layer
   uses: `"pallas"` -> `cholesky_lower`; anything else -> `dense_cholesky`
   (the library factorization with the same NaN contract).
@@ -31,12 +32,12 @@ import torch
 
 from . import _build
 
-BLOCK = 32  # block-column width; must equal NB in csrc/cholesky.cu
+BLOCK = 64  # block-column width; must equal NB in csrc/cholesky.cu
 
 SOURCE = _build.CSRC_DIR / "cholesky.cu"
-# (A, L, n, stream) -> cudaError_t
-_SIGNATURE = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
-              ctypes.c_int)
+# (A, L, Dinv, n, stream) -> cudaError_t; Dinv is BLOCK x BLOCK scratch
+_SIGNATURE = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+               ctypes.c_void_p], ctypes.c_int)
 _SIGNATURES = {
     "madqp_cholesky_lower_f32": _SIGNATURE,
     "madqp_cholesky_lower_f64": _SIGNATURE,
@@ -57,30 +58,40 @@ def _check_matrix(A: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _factor_diag(D: torch.Tensor) -> torch.Tensor:
+    """Factor the (jb, jb) diagonal block D in place by the column sweep
+    (sqrt pivot, scale the column, rank-1 update of the later columns) and
+    apply the same sweep to the identity: returns D's lower factor's
+    inverse, zero above the diagonal."""
+    jb = D.shape[0]
+    X = torch.eye(jb, dtype=D.dtype, device=D.device)
+    for k in range(jb):
+        D[k, k] = torch.sqrt(D[k, k])
+        D[k + 1:, k] /= D[k, k]
+        X[k, :k + 1] /= D[k, k]
+        col = D[k + 1:, k]
+        D[k + 1:, k + 1:] -= torch.tril(torch.outer(col, col))
+        X[k + 1:, :k + 1] -= torch.outer(col, X[k, :k + 1])
+    return X
+
+
 def cholesky_lower_reference(A: torch.Tensor) -> torch.Tensor:
     """Right-looking blocked Cholesky in plain PyTorch ops.
 
-    For each BLOCK-column block: the column sweep of the diagonal block
-    (sqrt pivot, scale the column, rank-1 update of the later columns),
-    the panel solve X L_D^T = P by forward substitution over the block's
-    columns, and the trailing update C -= X X^T on the lower triangle.
-    No early exit: a negative pivot's NaN propagates to the rest of the
-    factor, as in the TPU kernel and the CUDA kernel."""
+    For each BLOCK-column block: the column sweep of the diagonal block,
+    which also yields its inverse L_D^-1; the panel solve as the product
+    X = P L_D^-T; and the trailing update C -= X X^T on the lower
+    triangle.  No early exit: a negative pivot's NaN propagates to the
+    rest of the factor, as in the TPU kernel and the CUDA kernel."""
     n = _check_matrix(A)
     L = torch.tril(A)
     for j0 in range(0, n, BLOCK):
         j1 = min(j0 + BLOCK, n)
-        D = L[j0:j1, j0:j1]
-        for k in range(j1 - j0):
-            D[k, k] = torch.sqrt(D[k, k])
-            D[k + 1:, k] /= D[k, k]
-            col = D[k + 1:, k]
-            D[k + 1:, k + 1:] -= torch.tril(torch.outer(col, col))
+        Dinv = _factor_diag(L[j0:j1, j0:j1])
         if j1 == n:
-            continue
+            break
         X = L[j1:, j0:j1]
-        for k in range(j1 - j0):
-            X[:, k] = (X[:, k] - X[:, :k] @ D[k, :k]) / D[k, k]
+        X.copy_(X @ Dinv.T)
         L[j1:, j1:] -= torch.tril(X @ X.T)
     return L
 
@@ -122,9 +133,10 @@ def cholesky_lower(A: torch.Tensor) -> torch.Tensor:
     fn = (lib.madqp_cholesky_lower_f32 if A.dtype == torch.float32
           else lib.madqp_cholesky_lower_f64)
     out = torch.empty_like(A)
+    scratch = torch.empty((BLOCK, BLOCK), dtype=A.dtype, device=A.device)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(A.data_ptr(), out.data_ptr(), n, stream)
+        err = fn(A.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, stream)
     if err != 0:
         raise RuntimeError(f"K1 Cholesky kernel launch failed: CUDA error {err}")
     cholesky_lower.launches += 1

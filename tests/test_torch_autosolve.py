@@ -98,9 +98,9 @@ def test_bucketed_blocked_solve_matches_reference(monkeypatch):
     calls = []
     real = blocked_dense.syrk_update
 
-    def counted(C, B):
-        calls.append((tuple(C.shape), B.shape[1]))
-        return real(C, B)
+    def counted(C, B, out=None):
+        calls.append((C.shape[0], C.shape[1], B.shape[1]))
+        return real(C, B, out=out)
 
     monkeypatch.setattr(blocked_dense, "syrk_update", counted)
     solver = mt.MPCSolver(mt.random_qp(1000, 10, seed=1, ineq=False),
@@ -112,10 +112,13 @@ def test_bucketed_blocked_solve_matches_reference(monkeypatch):
     assert abs(got.iter - want.iter) <= 1
     assert got.objective == pytest.approx(want.objective, rel=1e-7)
     assert got.solution.shape == want.solution.shape == (1000,)
-    # W 1024^2 is one stripe of four 256-column panels: four in-stripe
-    # updates per factorization, the C (1024, 1024), B (1024, 256) shape.
-    assert len(calls) >= 4 * got.counters.factorizations > 0
-    assert set(calls) == {((1024, 1024), 256)}
+    # W 1024^2 is one stripe of four 256-column panels: three in-stripe
+    # updates per factorization, each of the block below and right of its
+    # panel: (768, 768, 256), (512, 512, 256), (256, 256, 256).
+    shapes = blocked_dense.panel_update_shapes(1024)
+    assert shapes == [(768, 768, 256), (512, 512, 256), (256, 256, 256)]
+    assert len(calls) == len(shapes) * got.counters.factorizations > 0
+    assert calls == shapes * got.counters.factorizations
 
 
 def test_bucketed_warm_start_matches_reference():

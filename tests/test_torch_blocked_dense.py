@@ -225,3 +225,37 @@ def test_non_spd_gives_bad_diagonal_in_both(fn, n):
 
     assert ok(jL) is False
     assert ok(tL.numpy()) is False
+
+
+@pytest.mark.parametrize("n", [1024, 2304, 4096])
+def test_panel_chol_launches_match_panel_update_shapes(monkeypatch, n):
+    """The (r, c, k) that panel_chol hands to K8, in order, are the list
+    panel_update_shapes gives (the chip smoke reads the same list).  K8 is
+    stubbed to record and return its output untouched, on the identity,
+    whose update is zero, so the shapes come without the work."""
+    calls = []
+
+    def record(C, B, out=None):
+        assert out is not None and out.data_ptr() == C.data_ptr()
+        calls.append((C.shape[0], C.shape[1], B.shape[1]))
+        return out
+
+    monkeypatch.setattr(T, "syrk_update", record)
+    L = T.panel_chol(torch.eye(n, dtype=torch.float32))
+    assert calls == T.panel_update_shapes(n)
+    assert torch.equal(L, torch.eye(n, dtype=torch.float32))
+
+
+def test_bucketed_n2000_takes_18_launches_per_trial():
+    """random_qp(2000, 1000) through the bucket rule: W 4096^2 (7 + 1
+    updates in its first stripe, 7 in its second) and S 1024^2 (3)."""
+    import madqp_tpu_torch as mt
+    from madqp_tpu_torch.solver.driver import bucket_shape
+
+    info = mt.build_standard_form_sparse(mt.random_qp(2000, 1000, seed=0))[1]
+    n_tot, m_tot = bucket_shape(info.n, info.m)
+    assert (n_tot, m_tot) == (4096, 1024)
+    w, s = T.panel_update_shapes(n_tot), T.panel_update_shapes(m_tot)
+    assert len(w) + len(s) == 18
+    assert w[0] == (3840, 1792, 256) and w[7] == (2048, 2048, 2048)
+    assert s == [(768, 768, 256), (512, 512, 256), (256, 256, 256)]

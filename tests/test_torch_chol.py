@@ -16,7 +16,8 @@ from madqp_tpu.ops.pallas_chol import pallas_cholesky
 from madqp_tpu_torch.ops import pallas_chol as K1
 
 TOL = {np.float64: 1e-10, np.float32: 1e-4}
-SIZES = [1, 37, 128, 200, 256]
+# Block edges of the 64-column blocking (63, 64, 65, 127, 129) among them.
+SIZES = [1, 37, 63, 64, 65, 127, 128, 129, 200, 256]
 
 
 def spd(n, dtype, seed):
@@ -48,7 +49,7 @@ def test_plain_matches_pallas_interpret(n, dtype):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("n", [1, 37, 200])
+@pytest.mark.parametrize("n", [1, 37, 63, 64, 65, 127, 129, 200])
 def test_non_spd_verdict_matches_pallas(n, dtype):
     B = not_spd(n, dtype, seed=n)
     want = pallas_cholesky(B, interpret=True)
@@ -56,6 +57,25 @@ def test_non_spd_verdict_matches_pallas(n, dtype):
     assert diag_ok(got.numpy()) == diag_ok(want) is False
     # no early exit: the NaN of the negative pivot reaches the last column
     assert np.isnan(got.numpy()[-1, -1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1, 64, 65, 130])
+def test_diagonal_sweep_inverts_the_block(n, dtype):
+    """The column sweep of the diagonal block also yields L_D^-1 (lower,
+    zero above the diagonal), which the panel solve multiplies by."""
+    A = torch.from_numpy(spd(n, np.float64, seed=n)).to(dtype)
+    D = torch.tril(A)
+    Dinv = K1._factor_diag(D)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(D, torch.linalg.cholesky(A), rtol=tol, atol=tol)
+    torch.testing.assert_close(Dinv @ D, torch.eye(n, dtype=dtype),
+                               rtol=tol, atol=tol)
+    assert bool((torch.triu(Dinv, 1) == 0).all())
+
+
+def test_block_matches_kernel():
+    assert K1.BLOCK == 64
 
 
 def test_wrapper_uses_plain_version_on_cpu():

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import madqp_tpu_torch as mt
+from madqp_tpu_torch.ops import blocked_dense
 from madqp_tpu_torch.ops import pallas_chol as K1
 from madqp_tpu_torch.ops import syrk as K8
 
@@ -40,7 +41,8 @@ def diag_ok(L):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 64, 200, 600])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 65, 129, 200, 600, 1000,
+                               2500])
 def test_kernel_matches_plain(cuda, n, dtype, tol):
     """Factor error relative to max|L| within the smoke's tolerances; zero
     strict upper triangle; one launch counted per call."""
@@ -55,7 +57,7 @@ def test_kernel_matches_plain(cuda, n, dtype, tol):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n", [1, 37, 200])
+@pytest.mark.parametrize("n", [1, 37, 65, 200, 600])
 def test_kernel_non_spd_contract(cuda, n, dtype):
     """A negative pivot gives NaN on the diagonal at the same places as the
     plain version (no early exit), so factor_ok fails for both."""
@@ -67,8 +69,10 @@ def test_kernel_non_spd_contract(cuda, n, dtype):
                        torch.isnan(torch.diagonal(Lbp)))
 
 
-def test_kernel_is_deterministic(cuda):
-    A = torch.as_tensor(spd(300, seed=3), dtype=torch.float32, device=cuda)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [300, 2500])
+def test_kernel_is_deterministic(cuda, n, dtype):
+    A = torch.as_tensor(spd(n, seed=3), dtype=dtype, device=cuda)
     assert torch.equal(K1.cholesky_lower(A), K1.cholesky_lower(A))
 
 
@@ -106,6 +110,9 @@ def syrk_inputs(r, c, k, dtype, seed):
 @pytest.mark.parametrize("r,c,k", [
     (1, 1, 1), (37, 37, 5), (64, 64, 16), (65, 33, 17), (300, 200, 40),
     (96, 96, 0), (1024, 1024, 256), (2304, 2048, 256), (256, 256, 2048),
+    # the blocked path's shapes (blocked_dense.panel_update_shapes)
+    (3840, 1792, 256), (2304, 256, 256), (2048, 2048, 2048), (1792, 1792, 256),
+    (768, 768, 256), (256, 256, 256),
 ])
 def test_syrk_kernel_matches_plain(cuda, r, c, k, dtype, tol):
     """max|out - plain| / max|plain| within the smoke's tolerances; one
@@ -136,21 +143,55 @@ def test_syrk_kernel_nan_contract(cuda, r, c, k, row, dtype):
     assert int(nan.sum()) == c + (r - 1 if row < c else 0)
 
 
-def test_syrk_kernel_is_deterministic(cuda):
-    C, B = syrk_inputs(500, 500, 64, torch.float32, seed=3)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("n,c0,k,offset", [
+    (4096, 256, 256, 0),     # panel_chol's first in-stripe update of W 4096
+    (1100, 300, 37, 1),      # ragged, odd row stride and offset: scalar copies
+    (600, 129, 64, 0),
+])
+def test_syrk_kernel_strided_in_place(cuda, n, c0, k, offset, dtype, tol):
+    """C a view S[c0:, c0:] of a larger matrix, B a view with another row
+    stride, out=C: the block becomes C - B B[:c]^T within the smoke's
+    tolerances and the rest of the parent matrix is left bit-equal."""
+    rng = np.random.default_rng(n + c0)
+    S = torch.as_tensor(rng.standard_normal((n, n + offset)), dtype=dtype,
+                        device=cuda)[:, offset:]
+    Zp = torch.as_tensor(rng.standard_normal((n, k + 3)) / np.sqrt(k),
+                         dtype=dtype, device=cuda)
+    C, B = S[c0:, c0:], Zp[c0:, 1:k + 1]
+    S0 = S.clone()
+    want = K8.syrk_update_reference(C.clone(), B.clone())
+    before = K8.syrk_update.launches
+    got = K8.syrk_update(C, B, out=C)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == C.data_ptr() and K8.syrk_update.launches == before + 1
+    assert float((C - want).abs().max()) <= tol * float(want.abs().max())
+    outside = torch.ones_like(S, dtype=torch.bool)
+    outside[c0:, c0:] = False
+    assert torch.equal(S[outside], S0[outside])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r,c,k", [(500, 500, 64), (3840, 1792, 256)])
+def test_syrk_kernel_is_deterministic(cuda, r, c, k, dtype):
+    C, B = syrk_inputs(r, c, k, dtype, seed=3)
     assert torch.equal(K8.syrk_update(C, B), K8.syrk_update(C, B))
 
 
 def test_syrk_kernel_rejects_non_contiguous(cuda):
+    """A column stride other than 1 raises; nothing is copied."""
     C = torch.zeros((8, 8), dtype=torch.float64, device=cuda)
     B = torch.zeros((4, 8), dtype=torch.float64, device=cuda).T
-    with pytest.raises(ValueError, match="contiguous"):
+    with pytest.raises(ValueError, match="column stride"):
         K8.syrk_update(C, B)
+    with pytest.raises(ValueError, match="column stride"):
+        K8.syrk_update(C, torch.zeros((8, 4), dtype=torch.float64, device=cuda),
+                       out=torch.zeros((8, 8), dtype=torch.float64, device=cuda).T)
 
 
 def test_blocked_solve_on_card_matches_cpu(cuda):
-    """The bucketed blocked solve (W 1024^2: four K8 updates per
-    factorization of W) on the card and on the CPU."""
+    """The bucketed blocked solve (W 1024^2: one stripe of four panels,
+    three K8 updates per factorization of W) on the card and on the CPU."""
     kw = dict(print_level=40, linear_solver="blocked", pad_mode="bucket",
               factorization_dtype="float32", max_refine_steps=1)
     qp = mt.random_qp(1000, 10, seed=1, ineq=False)
@@ -161,4 +202,6 @@ def test_blocked_solve_on_card_matches_cpu(cuda):
     assert got.success and want.success
     assert abs(got.iter - want.iter) <= 1
     assert got.objective == pytest.approx(want.objective, rel=1e-8)
-    assert launches == 4 * got.counters.factorizations > 0
+    per_trial = len(blocked_dense.panel_update_shapes(1024))
+    assert per_trial == 3
+    assert launches == per_trial * got.counters.factorizations > 0

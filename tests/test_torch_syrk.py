@@ -80,6 +80,70 @@ def test_plain_matches_numpy(r, c, k, dtype, tol):
     assert rel_err(got.numpy(), want) <= tol
 
 
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12), (np.float32, 1e-5)])
+@pytest.mark.parametrize("n,c0,k", [(40, 8, 5), (300, 45, 33), (513, 256, 64)])
+def test_plain_strided_views_in_place(n, c0, k, dtype, tol):
+    """C = S[c0:, c0:] and B = Z[c0:, 1:k + 1] are views with row strides
+    n and k + 3; out=C updates the parent S in that block only."""
+    rng = np.random.default_rng(n + k)
+    S = rng.standard_normal((n, n)).astype(dtype)
+    Z = (rng.standard_normal((n, k + 3)) / np.sqrt(k)).astype(dtype)
+    want = S.astype(np.float64).copy()
+    Bz = Z[c0:, 1:k + 1].astype(np.float64)
+    want[c0:, c0:] -= Bz @ Bz[:n - c0].T
+    St, Zt = torch.from_numpy(S.copy()), torch.from_numpy(Z)
+    C, B = St[c0:, c0:], Zt[c0:, 1:k + 1]
+    assert not C.is_contiguous() and not B.is_contiguous()
+    before = K8.syrk_update.launches
+    got = K8.syrk_update(C, B, out=C)
+    assert K8.syrk_update.launches == before
+    assert got.data_ptr() == C.data_ptr()
+    assert rel_err(St.numpy(), want) <= tol
+    outside = np.ones((n, n), bool)
+    outside[c0:, c0:] = False
+    np.testing.assert_array_equal(St.numpy()[outside], S[outside])
+    # the plain version takes the same arguments and gives the same bits
+    St2 = torch.from_numpy(S.copy())
+    K8.syrk_update_reference(St2[c0:, c0:], B, out=St2[c0:, c0:])
+    assert torch.equal(St2, St)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: (torch.zeros(8, 8), torch.zeros(4, 8).T, None),          # B
+    lambda: (torch.zeros(8, 8).T, torch.zeros(8, 2), None),          # C
+    lambda: (torch.zeros(8, 8), torch.zeros(8, 2), torch.zeros(8, 8).T),  # out
+])
+def test_wrapper_rejects_column_strided_operand(make):
+    C, B, out = make()
+    with pytest.raises(ValueError, match="column stride"):
+        K8.syrk_update(C, B, out=out)
+
+
+def test_wrapper_rejects_bad_out():
+    C, B = torch.zeros(8, 8), torch.zeros(8, 2)
+    with pytest.raises(ValueError, match="does not match"):
+        K8.syrk_update(C, B, out=torch.zeros(8, 7))
+    with pytest.raises(ValueError, match="other strides"):
+        K8.syrk_update(C[:, :4], B, out=C.as_strided((8, 4), (5, 1)))
+
+
+@pytest.mark.parametrize("r,c,k", [(3840, 1792, 256), (2048, 2048, 2048),
+                                   (300, 200, 40), (1, 1, 1)])
+def test_work_counts(r, c, k):
+    """The needed work is the lower half of the symmetric top block plus
+    the block below it; the kernel launches the lower tiles of the top
+    block and every tile below it, which cover that work."""
+    assert K8.syrk_ops(r, c, k) == c * (c + 1) * k + 2 * (r - c) * c * k
+    t = K8.TILE
+    tr, tc = -(-r // t), -(-c // t)
+    launched = sum(1 for i in range(tr) for j in range(tc) if j <= i or i >= tc)
+    issued = K8.syrk_tile_ops(r, c, k)
+    assert issued == 2 * k * t * t * launched
+    assert issued >= K8.syrk_ops(r, c, k)
+    # (3840, 1792, 256): 28 * 29 / 2 lower tiles of the top block, 32 * 28 below
+    assert K8.syrk_tile_ops(3840, 1792, 256) == 1302 * 2 * 256 * 64 ** 2
+
+
 def test_nan_in_b_reaches_its_row_and_column():
     C, B = inputs(40, 40, 8, seed=3)
     B[11, 5] = np.nan

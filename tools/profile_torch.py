@@ -28,11 +28,13 @@ import sys
 import time
 from pathlib import Path
 
-# Kernel-name fragments -> layer, first match wins.
+# Kernel-name fragments -> layer, first match wins.  The port's kernels
+# come first: K1 is one launch per factorization (madqp_cholesky_kernel),
+# K8 one per update (madqp_syrk_kernel); neither name holds a fragment of
+# the library layers below, its float64 DMMA tiles included.
 LAYERS = (
-    ("K1 cholesky (factorize)", ("copy_lower", "diag_factor", "panel_solve",
-                                 "trailing_update")),
-    ("K8 syrk_update (panel Cholesky trailing update)", ("syrk_update",)),
+    ("K1 cholesky (factorize)", ("madqp_cholesky",)),
+    ("K8 syrk_update (panel Cholesky trailing update)", ("madqp_syrk",)),
     ("library cholesky (factorize)", ("potrf", "getrf_wo_pivot", "trf4_set_info")),
     ("triangular solves (cholesky_solve)", ("trsv", "trsm")),
     ("matmul / matvec", ("gemm", "gemv", "cutlass", "xmma", "dot_kernel")),
