@@ -5,12 +5,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (each raises on failure, so any failure exits non-zero):
   1. device   print the card's name and power limit; pin TF32 off;
-  2. build    compile the K1 Cholesky and K8 rank-k update kernels from
-              madqp_tpu_torch/csrc/, one nvcc per source, in parallel; print
-              ptxas's registers, stack and spills per kernel (their shared
-              memory is dynamic, set by each source's smem_bytes) and
-              count the FP64 tensor-core instructions (DMMA) in each
-              library's SASS, which must be there (the float64 tile product);
+  2. build    compile the K1 Cholesky (single-matrix and batched) and K8
+              rank-k update kernels from madqp_tpu_torch/csrc/, one nvcc
+              per source, in parallel; print ptxas's registers, stack and
+              spills per kernel (their shared memory is dynamic, set by
+              each source's smem_bytes) and count the FP64 tensor-core
+              instructions (DMMA) in each library's SASS, which must be
+              there in the two that hold the tile product (float64);
   3. K1       K1 against its plain PyTorch version in float32 and float64
               at n in SIZES (factor error relative to max|L| <= 1e-5 /
               1e-12, reconstruction residual, the NaN contract on a non-SPD
@@ -42,13 +43,35 @@ Phases (each raises on failure, so any failure exits non-zero):
               autosolve_n2000 entry;
   8. variants random_qp(500, 200, seed=0) with each dense KKT variant of
               the reference's n500_variants (blocked, inverse, K2 with LU,
-              K2.5 with the signed blocked LDL^T); these launch no K8.
+              K2.5 with the signed blocked LDL^T); these launch no K8;
+  9. batched K1 against its plain version on (B, n, n) stacks at
+              BATCHED_SHAPES in float32 and float64 (phase 3's
+              tolerances per matrix; one non-SPD matrix gives NaN on its
+              own diagonal only and leaves the others' factors bit-equal;
+              two runs bit-equal; above the shared-memory limit n_max the
+              persistent kernel runs once per matrix), and CUDA-event
+              timings of the kernel, the plain version and
+              torch.linalg.cholesky_ex on the stack at BATCHED_TIMED;
+ 10. batched  solve_batched on 512 x dense_dummy_qp(32, 16, seed=i) with
+              bench.py's batched options and endgame="f64", through
+              linear_solver="pallas" (K1 one CTA per matrix: two launches
+              per factorization trial of the whole batch, W and S) and
+              "dense": every lane's status, iterations and objective
+              against the reference's batched512 entry, and instances/s;
+              then the four n = 500 headline QPs as one batch with
+              "pallas" (W 600^2 above n_max: the persistent kernel once per
+              lane) against the n500 entries;
+ 11. layer    qp_layer on a batch of 64 random QPs (n = 32, m = 8) in
+              float64, forward and backward, with "pallas" and "dense":
+              gradients of all six inputs for four lanes against the
+              reference's qp_layer64 entry.
 
 Every launch counter is set to 0 just before each solve phase and read
 just after it.  The line before the last is a JSON object describing the
 kernels (times at the shape the path runs most: K1 at n = 600 float32, K8
 at (3840, 1792, 256) float32, the first and largest in-stripe update of
-the blocked cell's W); the last line is {"ok": true, "device": {...}}.
+the blocked cell's W, batched K1 at (512, 42) float32, W of the batched
+cell); the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -95,6 +118,16 @@ SYRK_TOL = {"float32": 1e-5, "float64": 1e-12}   # max|out - plain| / max|plain|
 # torch.addmm beats it).
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 PEAK_BYTES = 3.35e12
+# Batched K1 (B, n): the batched cell's W and S, ragged block edges, the
+# largest order one CTA holds ("max") and the first it does not, and W of
+# the n = 500 QP (above the limit).
+BATCHED_SHAPES = ((512, 42), (512, 16), (64, 1), (64, 63), (64, 64), (64, 65),
+                  (16, "max"), (16, "max+1"), (4, 600))
+BATCHED_TIMED = ((512, 42), (512, 16), (4, 600))
+BATCH = 512
+BATCHED_OPTIONS = dict(tol=1e-8, print_level=40, factorization_dtype="float32",
+                       max_refine_steps=1, endgame="f64")  # + the step rule
+LAYER = dict(lanes=64, n=32, m=8, tol=1e-10)  # qp_layer batch of phase 11
 
 
 def phase(name):
@@ -119,23 +152,27 @@ def device_phase(torch):
     return name, smi
 
 
-def build_phase(kernels):
+def build_phase(k1, k8):
     phase("2. build")
     from madqp_tpu_torch.ops import _build
 
+    # (source, loader, holds the tile product, so DMMA in float64)
+    libs = ((k1.SOURCE, k1._library, True),
+            (k1.SOURCE_BATCHED, k1._batched_library, False),
+            (k8.SOURCE, k8._library, True))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        paths = list(pool.map(lambda k: k.build_library(), kernels))
-    for k in kernels:
-        k._library()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        paths = list(pool.map(lambda lib: _build.build(lib[0]), libs))
+    for _, load, _ in libs:
+        load()
     print(f"built {', '.join(p.name for p in paths)} in "
           f"{time.perf_counter() - t0:.2f} s")
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
-    for k, path in zip(kernels, paths):
+    for (source, _, tile), path in zip(libs, paths):
         # ptxas's report: "Compiling entry function '<mangled>'" then
         # "Function properties" (stack, spills) and "Used N registers".
         name = None
-        for line in _build.build_log(k.SOURCE).splitlines():
+        for line in _build.build_log(source).splitlines():
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
             elif name and ("spill" in line or "registers" in line):
@@ -146,7 +183,7 @@ def build_phase(kernels):
                                   check=True).stdout
             dmma = sum(1 for line in sass.splitlines() if "DMMA" in line)
             print(f"  {path.name}: {dmma} DMMA instructions in the SASS")
-            check(dmma > 0, f"{path.name}: the float64 path has no DMMA")
+            check(dmma > 0 or not tile, f"{path.name}: the float64 path has no DMMA")
         else:
             print(f"  {path.name}: no cuobjdump beside nvcc; SASS not read")
 
@@ -455,6 +492,203 @@ def variants_phase(mt, k1, k8, ref):
     check(k8.syrk_update.launches == 0, "an n = 500 variant launched K8")
 
 
+def spd_stack(torch, batch, n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    P = rng.standard_normal((batch, n, n))
+    A = P @ P.transpose(0, 2, 1) / max(n, 1) + np.eye(n)
+    return torch.as_tensor(A, dtype=dtype, device="cuda")
+
+
+def batched_kernel_phase(torch, k1):
+    phase("9. batched K1 against plain version")
+    main_err, timings = 0.0, {}
+    for dname in ("float32", "float64"):
+        dtype = getattr(torch, dname)
+        n_max = k1.batched_max_n(dtype, "cuda")
+        print(f"{dname}: one CTA holds n <= {n_max} (the card's opt-in shared memory)")
+        for batch, n in BATCHED_SHAPES:
+            if not isinstance(n, int):
+                n = n_max + (n == "max+1")
+            A = spd_stack(torch, batch, n, dtype, seed=n)
+            before = k1.cholesky_lower.launches
+            L = k1.cholesky_lower(A)
+            launched = k1.cholesky_lower.launches - before
+            Lp = k1.cholesky_lower_reference(A)
+            torch.cuda.synchronize()
+            diff = (L - Lp).abs()
+            abs_err = float(diff.max())
+            rel = float((diff.amax(dim=(1, 2)) / Lp.abs().amax(dim=(1, 2))).max())
+            A64, L64 = A.double(), L.double()
+            resid = float((torch.linalg.norm(L64 @ L64.mT - A64, dim=(1, 2))
+                           / torch.linalg.norm(A64, dim=(1, 2))).max())
+            upper_zero = bool((torch.triu(L, 1) == 0).all())
+            same = bool(torch.equal(L, k1.cholesky_lower(A)))
+            # One non-SPD matrix (a negative diagonal entry midway): NaN on
+            # its own diagonal, at the plain version's places; the other
+            # factors keep their bits.
+            bad = batch // 2
+            B = A.clone()
+            B[bad, n // 2, n // 2] = -1.0
+            Lb, Lbp = k1.cholesky_lower(B), k1.cholesky_lower_reference(B)
+            d, dp = (torch.diagonal(M, dim1=1, dim2=2) for M in (Lb, Lbp))
+            lanes_ok = torch.arange(batch, device="cuda") != bad
+            contract = (bool(torch.equal((torch.isfinite(d) & (d > 0)).all(1), lanes_ok))
+                        and bool(torch.equal((torch.isfinite(dp) & (dp > 0)).all(1), lanes_ok))
+                        and bool(torch.equal(torch.isnan(d), torch.isnan(dp)))
+                        and bool(torch.equal(Lb[lanes_ok], L[lanes_ok])))
+            expect = 1 if n <= n_max else batch
+            print(f"{dname} (B, n)=({batch}, {n}): rel_err={rel:.3e} (tol "
+                  f"{TOL_FACTOR[dname]:g}) max_abs_err={abs_err:.3e} resid={resid:.3e} "
+                  f"launches={launched} rerun_bit_equal={same} one_bad_lane_contract={contract}")
+            check(launched == expect, f"{dname} {(batch, n)}: {launched} launches, not {expect}")
+            check(same, f"{dname} {(batch, n)}: two runs differ")
+            check(rel <= TOL_FACTOR[dname], f"{dname} {(batch, n)}: kernel differs from plain")
+            check(resid <= TOL_RESIDUAL[dname], f"{dname} {(batch, n)}: residual {resid:.3e}")
+            check(upper_zero, f"{dname} {(batch, n)}: strict upper triangle not zero")
+            check(contract, f"{dname} {(batch, n)}: per-lane non-SPD contract broken")
+            if dname == "float32" and (batch, n) in ((512, 42), (512, 16)):
+                main_err = max(main_err, abs_err)
+            if (batch, n) in BATCHED_TIMED:
+                t = {
+                    "kernel": cuda_median_ms(torch, lambda: k1.cholesky_lower(A)),
+                    # a Python loop over columns: fewer samples
+                    "plain": cuda_median_ms(
+                        torch, lambda: k1.cholesky_lower_reference(A), runs=5, burst=1),
+                    "torch.linalg.cholesky_ex": cuda_median_ms(
+                        torch, lambda: torch.linalg.cholesky_ex(A)),
+                }
+                # B n^3/3 operations; the stack read once, the factors written once
+                t["bound"], t["bound_by"] = bound_ms(
+                    batch * n ** 3 / 3, 2 * batch * n * n * A.element_size(), dname)
+                timings[(dname, (batch, n))] = t
+                print(f"  time {dname} (B, n)=({batch}, {n}) (median of {TIMING_RUNS} "
+                      f"bursts of {BURST}, ms): "
+                      + ", ".join(f"{k}={v:.4f}" for k, v in t.items() if k != "bound_by")
+                      + f" ({t['bound_by']}); kernel/library "
+                      f"{t['kernel'] / t['torch.linalg.cholesky_ex']:.2f}")
+    return main_err, timings
+
+
+def check_lanes(stats, want, label, iter_slack=1):
+    """Each lane's status, iterations (within iter_slack: a float32 phase
+    may hand over an iteration apart) and objective (1e-8 relative)
+    against the reference's per-lane lists."""
+    moved = 0
+    for i, st in enumerate(stats):
+        rel = abs(st.objective - want["objective"][i]) / max(abs(want["objective"][i]), 1.0)
+        check(int(st.status) == want["status"][i], f"{label} lane {i}: {st.status.name}")
+        check(abs(st.iter - want["iter"][i]) <= iter_slack,
+              f"{label} lane {i}: {st.iter} iterations, reference {want['iter'][i]}")
+        check(rel <= 1e-8, f"{label} lane {i}: objective off by {rel:.2e}")
+        moved += st.iter != want["iter"][i]
+    print(f"  {label}: {len(stats)} lanes match the reference; {moved} lanes "
+          f"an iteration apart; iterations {min(s.iter for s in stats)}-"
+          f"{max(s.iter for s in stats)}")
+
+
+def batched_path_phase(torch, mt, k1, k8, ref):
+    phase(f"10. batched: solve_batched on {BATCH} x dense_dummy_qp(32, 16)")
+    qps = [mt.dense_dummy_qp(32, 16, seed=i) for i in range(BATCH)]
+    options = dict(BATCHED_OPTIONS, step_rule=mt.AdaptiveStep(0.995),
+                   regularization=mt.FixedRegularization(1e-8, -1e-8))
+    launches = None
+    for backend in ("pallas", "dense"):
+        solver = mt.BatchedMPCSolver.from_problems(qps, device="cuda",
+                                                   linear_solver=backend, **options)
+        reset_counts(k1, k8)
+        t0 = time.perf_counter()
+        stats = solver.solve_all()
+        first = time.perf_counter() - t0
+        n = k1.cholesky_lower.launches
+        check(k8.syrk_update.launches == 0, f"batched {backend} launched K8")
+        check_lanes(stats, ref["batched512"], f"batched512 {backend}")
+        t0 = time.perf_counter()
+        solver.solve_batch()
+        warm = time.perf_counter() - t0
+        top = max(st.iter for st in stats)
+        print(f"  {backend}: K1 launches {n} (lanes up to {top} iterations; two per "
+              f"factorization trial of the batch); first solve {first:.3f} s, warm "
+              f"solve {warm:.3f} s: {BATCH / warm:.1f} instances/s")
+        if backend == "pallas":
+            check(n % 2 == 0 and n >= 2 * (top + 1), f"batched K1 launched {n} times")
+            launches = n
+        else:
+            check(n == 0, "the dense batched solve launched K1")
+
+    # The n = 500 headline QPs as one batch: W 600^2 is above the one-CTA
+    # limit, so K1 runs the persistent kernel once per lane.
+    reset_counts(k1, k8)
+    stats = mt.solve_batched(
+        [mt.random_qp(500, 200, seed=s, ineq=True) for s in range(4)], device="cuda",
+        step_rule=mt.AdaptiveStep(0.995),
+        regularization=mt.FixedRegularization(1e-8, -1e-8),
+        linear_solver="pallas", **SOLVE_OPTIONS)
+    want = {key: [ref["n500"][str(s)][key] for s in range(4)]
+            for key in ("status", "iter", "objective")}
+    check_lanes(stats, want, "n500 x 4 pallas")
+    print(f"  K1 launches {k1.cholesky_lower.launches} "
+          f"(iterations {[st.iter for st in stats]})")
+    check(k1.cholesky_lower.launches > 0, "the n = 500 batch launched no K1")
+    return launches
+
+
+def layer_problem(seed, n=LAYER["n"], m=LAYER["m"]):
+    """One strictly convex QP of phase 11, from `seed` with NumPy: H SPD, b
+    feasible, a box around a feasible point (some bounds end up active)."""
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(n, n))
+    H = M @ M.T + n * np.eye(n)
+    c = rng.normal(size=n)
+    A = rng.normal(size=(m, n))
+    x_feas = rng.normal(size=n)
+    b = A @ x_feas
+    lb = x_feas - rng.uniform(0.05, 2.0, size=n)
+    ub = x_feas + rng.uniform(0.05, 2.0, size=n)
+    return H, c, A, b, lb, ub
+
+
+def layer_weights(n=LAYER["n"]):
+    """The loss of phase 11 is sum(w * x^2) + 0.1 * sum(y)."""
+    return np.linspace(0.5, 1.5, n)
+
+
+def layer_phase(torch, mt, k1, k8, ref):
+    phase(f"11. qp_layer: {LAYER['lanes']} random QPs (n = {LAYER['n']}), float64")
+    want = ref["qp_layer64"]
+    data = [layer_problem(seed) for seed in range(LAYER["lanes"])]
+    stacked = [torch.tensor(np.stack([d[j] for d in data]), device="cuda",
+                            requires_grad=True) for j in range(6)]
+    w = torch.as_tensor(layer_weights(), device="cuda")
+    for backend in ("pallas", "dense"):
+        reset_counts(k1, k8)
+        t0 = time.perf_counter()
+        sol = mt.qp_layer(*stacked, tol=LAYER["tol"], print_level=40,
+                          linear_solver=backend)
+        loss = (w * sol.x ** 2).sum() + 0.1 * sol.y.sum()
+        grads = torch.autograd.grad(loss, stacked)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(bool((sol.status == 1).all()), f"qp_layer {backend}: a lane unsolved")
+        worst = 0.0
+        for lane, rec in want["lanes"].items():
+            i = int(lane)
+            check(int(sol.iters[i]) == rec["iter"],
+                  f"qp_layer {backend} lane {i}: {int(sol.iters[i])} iterations, "
+                  f"reference {rec['iter']}")
+            for g, name in zip(grads, ("H", "c", "A", "b", "lb", "ub")):
+                ref_g = torch.as_tensor(rec["grads"][name], dtype=torch.float64,
+                                        device="cuda")
+                rel = float((g[i] - ref_g).abs().max() / ref_g.abs().max())
+                worst = max(worst, rel)
+                check(rel <= 1e-7, f"qp_layer {backend} lane {i}: grad {name} off by {rel:.2e}")
+        print(f"  {backend}: forward + backward {secs:.3f} s, iterations "
+              f"{int(sol.iters.min())}-{int(sol.iters.max())}, K1 launches "
+              f"{k1.cholesky_lower.launches}, worst gradient error {worst:.2e} "
+              f"(tol 1e-7) over lanes {sorted(int(k) for k in want['lanes'])}")
+        check((k1.cholesky_lower.launches > 0) == (backend == "pallas"),
+              f"qp_layer {backend}: K1 launches {k1.cholesky_lower.launches}")
+
+
 def main():
     import torch
 
@@ -469,17 +703,21 @@ def main():
     ref = json.loads(ref_path.read_text())
 
     name, smi = device_phase(torch)
-    build_phase((k1, k8))
+    build_phase(k1, k8)
     k1_err, k1_times = kernel_phase(torch, k1)
     k1_launches, k1_fact = main_path_phase(mt, k1, k8, ref)
     large_phase(mt, k1, ref)
     k8_err, k8_times = syrk_phase(torch, k8)
     k8_launches, k8_fact = blocked_phase(torch, mt, k1, k8, ref)
     variants_phase(mt, k1, k8, ref)
+    kb_err, kb_times = batched_kernel_phase(torch, k1)
+    kb_launches = batched_path_phase(torch, mt, k1, k8, ref)
+    layer_phase(torch, mt, k1, k8, ref)
 
     t600 = k1_times[("float32", 600)]
     k1_bound, k1_by = bound_ms(600.0 ** 3 / 3, 2 * 600 * 600 * 4, "float32")
     t8 = k8_times[("float32", (3840, 1792, 256))]
+    tb = kb_times[("float32", (512, 42))]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "cholesky_lower",
@@ -505,6 +743,18 @@ def main():
         "bound_ms": t8["bound"],
         "bound_by": t8["bound_by"],
         "library_ms": t8["torch.addmm"],
+    }, {
+        "name": "K1-batched",
+        "route": "cuda",
+        "source": "madqp_tpu_torch/csrc/cholesky_batched.cu",
+        "replaces": "madqp_tpu/ops/pallas_chol.py:158",
+        "launches": kb_launches,
+        "max_abs_err": kb_err,
+        "ms": tb["kernel"],
+        "plain_ms": tb["plain"],
+        "bound_ms": tb["bound"],
+        "bound_by": tb["bound_by"],
+        "library_ms": tb["torch.linalg.cholesky_ex"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

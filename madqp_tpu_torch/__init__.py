@@ -2,12 +2,16 @@
 
 Port of `madqp_tpu` (the JAX package, which stays the reference): the
 dense Mehrotra predictor-corrector solve with the condensed, normal, K2
-and K2.5 KKT systems, shape bucketing and the shape-routed `autosolve`.
+and K2.5 KKT systems, shape bucketing and the shape-routed `autosolve`;
+batched lockstep solves of many small QPs (`solve_batched`,
+`BatchedMPCSolver`); and the differentiable QP layer (`qp_layer`,
+`qp_layer_general`, a `torch.autograd.Function`).
 The reference's Pallas kernels are hand-written CUDA kernels here: the
 Cholesky (K1: `ops/pallas_chol.py`, `csrc/cholesky.cu`), selected with
 `linear_solver="pallas"`, and the rank-k update (K8: `ops/syrk.py`,
 `csrc/syrk.cu`), the trailing update of the panel Cholesky behind
-`linear_solver="blocked"`.
+`linear_solver="blocked"`.  On a batch, K1 factors one matrix per CTA
+(`csrc/cholesky_batched.cu`).
 
 Importing the package sets no global state: every tensor carries an
 explicit dtype (float64 by default, `factorization_dtype` for the
@@ -44,6 +48,8 @@ from .models import (
     random_qp,
 )
 from .solver import MPCSolver, solve, autosolve
+from .parallel import BatchedMPCSolver, solve_batched
+from .diff import qp_layer, qp_layer_general, QPLayerSolution
 from .convert import problem_arrays_from_numpy, ipm_state_from_numpy
 
 __version__ = "0.1.0"
@@ -76,6 +82,11 @@ __all__ = [
     "MPCSolver",
     "solve",
     "autosolve",
+    "BatchedMPCSolver",
+    "solve_batched",
+    "qp_layer",
+    "qp_layer_general",
+    "QPLayerSolution",
     "problem_arrays_from_numpy",
     "ipm_state_from_numpy",
 ]

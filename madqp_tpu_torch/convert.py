@@ -7,6 +7,12 @@ array as a tensor of `dtype` on `device`.  Masks become bool tensors;
 integer counters, the status code and the `initialized` flag become
 Python scalars (this package keeps them on the host).  The tests use this
 to feed one identical state to both packages' MPC `iteration`.
+
+A batch (the reference's vmapped arrays, a leading lane axis on every
+field) carries across the same way, into the layout of
+`solver.mpc.BatchedMPCKernel`: the counters and the status become int64
+tensors (B,), and `initialized`, which must agree in every lane, one host
+bool.
 """
 
 from __future__ import annotations
@@ -50,20 +56,27 @@ def problem_arrays_from_numpy(fields: dict, dtype=torch.float64, *,
 
 def ipm_state_from_numpy(fields: dict, dtype=torch.float64, *,
                          device) -> IPMState:
-    """IPMState from NumPy arrays.  `d` is a sequence (x, y, zl, zu) of
-    arrays, since the direction is itself a NamedTuple of unequal parts."""
+    """IPMState from NumPy arrays, of one problem or of a batch (`k` of
+    shape (B,)).  `d` is a sequence (x, y, zl, zu) of arrays, since the
+    direction is itself a NamedTuple of unequal parts."""
     def as_dev(v):
         return torch.as_tensor(np.array(v), dtype=dtype, device=device)
 
+    batched = np.ndim(fields["k"]) == 1
     out = {}
     for name in IPMState._fields:
         v = fields[name]
         if name == "d":
             out[name] = KKTVec(*(as_dev(part) for part in v))
         elif name in _HOST_INTS:
-            out[name] = int(np.asarray(v))
+            out[name] = (torch.as_tensor(np.array(v), dtype=torch.int64, device=device)
+                         if batched else int(np.asarray(v)))
         elif name == "initialized":
-            out[name] = bool(np.asarray(v))
+            flags = np.asarray(v, dtype=bool)
+            if flags.min() != flags.max():
+                raise ValueError("the lanes of a batched state must agree on "
+                                 "`initialized`: they start together")
+            out[name] = bool(flags.all())
         else:
             out[name] = as_dev(v)
     return IPMState(**out)

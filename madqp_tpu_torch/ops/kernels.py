@@ -7,7 +7,13 @@ same masked full-length semantics:
     off-mask;
   * `lb`/`ub` hold finite placeholders off-mask, so no 0*inf NaNs appear;
   * scalar results (ratio tests, barrier, measures) stay 0-d tensors on the
-    problem's device; the caller decides when to read one on the host.
+    problem's device; the caller decides when to read one on the host;
+  * every function also takes a batch of problems, vectors (B, n) with a
+    leading lane axis: reductions run over the last axis and give one
+    value per lane (B,), and a per-lane scalar (B,) scales its lane's
+    vector (`per_lane`).  That is what `jax.vmap` makes of the reference's
+    functions; here it is written out.  A 1-D input gives the 0-d result
+    it gives alone, bit for bit.
 
 These are plain PyTorch: none of them is a hand kernel (the reference left
 them to XLA's fusion).  A Python float is accepted wherever the reference
@@ -38,10 +44,10 @@ class KKTVec(NamedTuple):
     Replaces MadNLP.UnreducedKKTVector (reference src/structure.jl:130-133).
     """
 
-    x: torch.Tensor   # (n,)
-    y: torch.Tensor   # (m,)
-    zl: torch.Tensor  # (n,)
-    zu: torch.Tensor  # (n,)
+    x: torch.Tensor   # (n,) or (B, n)
+    y: torch.Tensor   # (m,) or (B, m)
+    zl: torch.Tensor  # (n,) or (B, n)
+    zu: torch.Tensor  # (n,) or (B, n)
 
     def flat_inf_norm(self) -> torch.Tensor:
         return torch.maximum(
@@ -56,13 +62,31 @@ class KKTVec(NamedTuple):
         return KKTVec(*(a - b for a, b in zip(self, other)))
 
 
+def per_lane(s):
+    """A per-lane scalar (B,) as (B, 1), to scale its lane's vector of a
+    (B, n) stack; a 0-d tensor or a Python number is returned as it is."""
+    return s[..., None] if isinstance(s, torch.Tensor) and s.dim() else s
+
+
+def matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """M @ v for one matrix (m, n) and vector (n,), or lane by lane for a
+    stack (B, m, n) and (B, n)."""
+    return M @ v if v.dim() == 1 else (M @ v[..., None])[..., 0]
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b over the last axis (torch.dot for 1-D vectors)."""
+    return torch.dot(a, b) if a.dim() == 1 else (a * b).sum(-1)
+
+
 def _inf_norm(v: torch.Tensor) -> torch.Tensor:
-    return v.abs().max() if v.numel() else v.new_zeros(())
+    return v.abs().amax(-1) if v.shape[-1] else v.new_zeros(v.shape[:-1])
 
 
 def _min_or_inf(v: torch.Tensor) -> torch.Tensor:
-    """min(v) with an empty v giving +inf (jnp.min(..., initial=inf))."""
-    return v.min() if v.numel() else v.new_full((), math.inf)
+    """min over the last axis with an empty axis giving +inf
+    (jnp.min(..., initial=inf))."""
+    return v.amin(-1) if v.shape[-1] else v.new_full(v.shape[:-1], math.inf)
 
 
 def slacks(x, lb, ub, has_lb, has_ub):
@@ -81,7 +105,7 @@ def sigma_diagonal(x, lb, ub, has_lb, has_ub, zl, zu, del_w):
     """pr_diag = del_w + zl/(x-lb) + zu/(ub-x), masked."""
     sl, su = slacks(x, lb, ub, has_lb, has_ub)
     return (
-        del_w
+        per_lane(del_w)
         + torch.where(has_lb, zl / sl, 0.0)
         + torch.where(has_ub, zu / su, 0.0)
     )
@@ -94,14 +118,15 @@ def sigma_diagonal(x, lb, ub, has_lb, has_ub, zl, zu, del_w):
 
 def initial_primal_rhs(c_res, n, dtype):
     """rhs = (0, -c_res, 0, 0): primal least-squares (src/kernels.jl:1-9)."""
-    z = torch.zeros(n, dtype=dtype, device=c_res.device)
+    z = torch.zeros(c_res.shape[:-1] + (n,), dtype=dtype, device=c_res.device)
     return KKTVec(x=z, y=-c_res, zl=z, zu=z)
 
 
 def initial_dual_rhs(g, m, dtype):
     """rhs = (-g, 0, 0, 0): dual least-squares (src/kernels.jl:11-19)."""
-    z = torch.zeros(g.shape[0], dtype=dtype, device=g.device)
-    return KKTVec(x=-g, y=torch.zeros(m, dtype=dtype, device=g.device),
+    z = torch.zeros(g.shape, dtype=dtype, device=g.device)
+    return KKTVec(x=-g, y=torch.zeros(g.shape[:-1] + (m,), dtype=dtype,
+                                      device=g.device),
                   zl=z, zu=z)
 
 
@@ -123,6 +148,7 @@ def correction_rhs(g, jacl, c_res, x, lb, ub, has_lb, has_ub, zl, zu, mu,
     pzl = -sl.zl + mu - corr_lb ; pzu = -su.zu + mu + corr_ub.
     """
     sl, su = slacks(x, lb, ub, has_lb, has_ub)
+    mu = per_lane(mu)
     return KKTVec(
         x=-g + zl - zu - jacl,
         y=-c_res,
@@ -154,7 +180,8 @@ def gondzio_extra_correction(
     Clamp the trial complementarity products into [beta_min*mu, beta_max*mu];
     the excess delta is folded into the corrections.
     """
-    tmin, tmax = beta_min * mu, beta_max * mu
+    tmin, tmax = beta_min * per_lane(mu), beta_max * per_lane(mu)
+    alpha_p, alpha_d = per_lane(alpha_p), per_lane(alpha_d)
     sl, su = slacks(x, lb, ub, has_lb, has_ub)
 
     v_l = (sl + alpha_p * d.x) * (zl + alpha_d * d.zl)
@@ -197,15 +224,15 @@ def recover_bound_duals(p: KKTVec, dx, x, lb, ub, has_lb, has_ub, zl, zu):
 
 def _bound_mean(num, has_lb, has_ub):
     """num / (nlb + nub), 0 when there are no bounds."""
-    cnt = has_lb.sum() + has_ub.sum()
+    cnt = has_lb.sum(-1) + has_ub.sum(-1)
     return torch.where(cnt > 0, num / torch.clamp(cnt, min=1), 0.0)
 
 
 def complementarity_measure(x, lb, ub, has_lb, has_ub, zl, zu):
     """mu = (sum (x-lb).zl + sum (ub-x).zu) / (nlb + nub); 0 if no bounds."""
     sl, su = slacks(x, lb, ub, has_lb, has_ub)
-    num = (torch.where(has_lb, sl * zl, 0.0).sum()
-           + torch.where(has_ub, su * zu, 0.0).sum())
+    num = (torch.where(has_lb, sl * zl, 0.0).sum(-1)
+           + torch.where(has_ub, su * zu, 0.0).sum(-1))
     return _bound_mean(num, has_lb, has_ub)
 
 
@@ -214,11 +241,12 @@ def affine_complementarity_measure(
 ):
     """Trial complementarity at (x + a_p dx, z + a_d dz) (src/kernels.jl:192-224)."""
     sl, su = slacks(x, lb, ub, has_lb, has_ub)
+    alpha_p, alpha_d = per_lane(alpha_p), per_lane(alpha_d)
     num = torch.where(
         has_lb, (sl + alpha_p * d.x) * (zl + alpha_d * d.zl), 0.0
-    ).sum() + torch.where(
+    ).sum(-1) + torch.where(
         has_ub, (su - alpha_p * d.x) * (zu + alpha_d * d.zu), 0.0
-    ).sum()
+    ).sum(-1)
     return _bound_mean(num, has_lb, has_ub)
 
 
@@ -236,9 +264,11 @@ def optimality_gap(x, lb, ub, has_lb, has_ub, zl, zu):
 
 
 def _ratio_min(vals):
-    """(min(1, min(vals)), argmin(vals)) of a ratio-test vector."""
+    """(min(1, min(vals)), argmin(vals)) of a ratio-test vector, over its
+    last axis."""
     alpha = torch.clamp(_min_or_inf(vals), max=1.0)
-    idx = torch.argmin(vals) if vals.numel() else vals.new_zeros((), dtype=torch.int64)
+    idx = (torch.argmin(vals, -1) if vals.shape[-1]
+           else vals.new_zeros(vals.shape[:-1], dtype=torch.int64))
     return alpha, idx
 
 
@@ -248,6 +278,7 @@ def alpha_max_primal(x, lb, ub, has_lb, has_ub, dx, tau):
     Returns (alpha_xl, alpha_xu, iblock_l, iblock_u) like the reference's
     argmin-carrying mapreduce (get_alpha_max_primal).
     """
+    tau = per_lane(tau)
     cond_l = has_lb & (dx < 0)
     vals_l = torch.where(cond_l, tau * (lb - x) / torch.where(cond_l, dx, -1.0),
                          math.inf)
@@ -265,6 +296,7 @@ def alpha_max_dual(zl, zu, has_lb, has_ub, dzl, dzu, tau):
     The upper-dual test replicates the reference's extra guard
     `(dzu < 0) && (zu + dzu < 0)` (src/kernels.jl:279).
     """
+    tau = per_lane(tau)
     cond_l = has_lb & (dzl < 0)
     vals_l = torch.where(cond_l, -tau * zl / torch.where(cond_l, dzl, -1.0),
                          math.inf)
@@ -318,18 +350,21 @@ def step_mehrotra_adaptive(d, x, lb, ub, has_lb, has_ub, zl, zu, mu, gamma_f):
 
     sl, su = slacks(x, lb, ub, has_lb, has_ub)
 
+    def at(v, i):  # v[i] in each lane
+        return torch.take_along_dim(v, i[..., None], -1)[..., 0]
+
     # Primal rescue at the blocking index.
-    tmp = mu_full / (zl[i_xl] + max_alpha_d * d.zl[i_xl])
-    resc_p_l = (sl[i_xl] - tmp) / (-d.x[i_xl])  # (x - lb - tmp)/(-dx)
-    tmp = mu_full / (zu[i_xu] + max_alpha_d * d.zu[i_xu])
-    resc_p_u = (su[i_xu] - tmp) / d.x[i_xu]
+    tmp = mu_full / (at(zl, i_xl) + max_alpha_d * at(d.zl, i_xl))
+    resc_p_l = (at(sl, i_xl) - tmp) / (-at(d.x, i_xl))  # (x - lb - tmp)/(-dx)
+    tmp = mu_full / (at(zu, i_xu) + max_alpha_d * at(d.zu, i_xu))
+    resc_p_u = (at(su, i_xu) - tmp) / at(d.x, i_xu)
     alpha_p_resc = torch.where(axl <= axu, resc_p_l, resc_p_u)
     alpha_p = torch.where(max_alpha_p < 1.0, alpha_p_resc, 1.0)
 
-    tmp = mu_full / (sl[i_zl] + max_alpha_p * d.x[i_zl])
-    resc_d_l = -(zl[i_zl] - tmp) / d.zl[i_zl]
-    tmp = mu_full / (su[i_zu] - max_alpha_p * d.x[i_zu])
-    resc_d_u = -(zu[i_zu] - tmp) / d.zu[i_zu]
+    tmp = mu_full / (at(sl, i_zl) + max_alpha_p * at(d.x, i_zl))
+    resc_d_l = -(at(zl, i_zl) - tmp) / at(d.zl, i_zl)
+    tmp = mu_full / (at(su, i_zu) - max_alpha_p * at(d.x, i_zu))
+    resc_d_u = -(at(zu, i_zu) - tmp) / at(d.zu, i_zu)
     alpha_d_resc = torch.where(azl <= azu, resc_d_l, resc_d_u)
     alpha_d = torch.where(max_alpha_d < 1.0, alpha_d_resc, 1.0)
 
@@ -367,9 +402,9 @@ def mehrotra_barrier(
 
 def dual_objective(y, b, lb, ub, has_lb, has_ub, zl, zu):
     """-y'b + zl'lb - zu'ub over finite bounds (reference dual_objective)."""
-    out = -torch.dot(y, b) if y.numel() else lb.new_zeros(())
-    out = out + torch.where(has_lb, zl * lb, 0.0).sum()
-    out = out - torch.where(has_ub, zu * ub, 0.0).sum()
+    out = -dot(y, b) if y.shape[-1] else lb.new_zeros(lb.shape[:-1])
+    out = out + torch.where(has_lb, zl * lb, 0.0).sum(-1)
+    out = out - torch.where(has_ub, zu * ub, 0.0).sum(-1)
     return out
 
 
@@ -443,11 +478,13 @@ def mehrotra_positivity_shift(x, lb, ub, has_lb, has_ub, zl, zu):
     su = torch.where(has_ub, ub - x, math.inf)
     min_sl = _finite_or_zero(_min_or_inf(sl))
     min_su = _finite_or_zero(_min_or_inf(su))
-    delta_x = torch.clamp(torch.maximum(-1.5 * min_sl, -1.5 * min_su), min=0.0)
+    delta_x = per_lane(
+        torch.clamp(torch.maximum(-1.5 * min_sl, -1.5 * min_su), min=0.0))
 
     zl_min = _finite_or_zero(_min_or_inf(torch.where(has_lb, zl, math.inf)))
     zu_min = _finite_or_zero(_min_or_inf(torch.where(has_ub, zu, math.inf)))
-    delta_s = torch.clamp(torch.maximum(-1.5 * zl_min, -1.5 * zu_min), min=0.0)
+    delta_s = per_lane(
+        torch.clamp(torch.maximum(-1.5 * zl_min, -1.5 * zu_min), min=0.0))
 
     # x shift: +delta on lb-only side, -delta on ub-only side, 0 two-sided.
     side = has_lb.to(x.dtype) - has_ub.to(x.dtype)
@@ -458,15 +495,15 @@ def mehrotra_positivity_shift(x, lb, ub, has_lb, has_ub, zl, zu):
     # Second-order shifts.
     sl2 = torch.where(has_lb, x - lb, 0.0)
     su2 = torch.where(has_ub, ub - x, 0.0)
-    mu0 = (torch.where(has_lb, sl2 * zl, 0.0).sum()
-           + torch.where(has_ub, su2 * zu, 0.0).sum())
-    sum_z = (torch.where(has_lb, zl, 0.0).sum()
-             + torch.where(has_ub, zu, 0.0).sum())
-    sum_s = sl2.sum() + su2.sum()
-    delta_x2 = torch.where(sum_z > 0,
-                           mu0 / (2.0 * torch.clamp(sum_z, min=1e-300)), 0.0)
-    delta_s2 = torch.where(sum_s > 0,
-                           mu0 / (2.0 * torch.clamp(sum_s, min=1e-300)), 0.0)
+    mu0 = (torch.where(has_lb, sl2 * zl, 0.0).sum(-1)
+           + torch.where(has_ub, su2 * zu, 0.0).sum(-1))
+    sum_z = (torch.where(has_lb, zl, 0.0).sum(-1)
+             + torch.where(has_ub, zu, 0.0).sum(-1))
+    sum_s = sl2.sum(-1) + su2.sum(-1)
+    delta_x2 = per_lane(torch.where(
+        sum_z > 0, mu0 / (2.0 * torch.clamp(sum_z, min=1e-300)), 0.0))
+    delta_s2 = per_lane(torch.where(
+        sum_s > 0, mu0 / (2.0 * torch.clamp(sum_s, min=1e-300)), 0.0))
 
     x = x + delta_x2 * side
     zl = torch.where(has_lb, zl + delta_s2, 0.0)
@@ -477,7 +514,7 @@ def mehrotra_positivity_shift(x, lb, ub, has_lb, has_ub, zl, zu):
 def adjust_boundary(x, lb, ub, has_lb, has_ub, mu, eps):
     """Relax bounds whose slack collapsed below eps*mu
     (MadNLP.adjust_boundary! called at reference src/solver.jl:342)."""
-    c1 = eps * mu
+    c1 = eps * per_lane(mu)
     c2 = eps ** 0.75
     lb2 = torch.where(
         has_lb & (x - lb < c1), lb - c2 * torch.clamp(x.abs(), min=1.0), lb

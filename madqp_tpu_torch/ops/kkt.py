@@ -32,6 +32,12 @@ differ in conditioning and cost:
   * K2_5      — K2 with symmetric Jacobi scaling.
 The Schur and sparse formulations are not ported yet: `make_kkt` raises
 `NotImplementedError` naming the ROADMAP.md item that ports each.
+
+A batch of problems (leading lane axis on every tensor: `prob.A` (B, m, n),
+`pr_diag` (B, n), `del_c` (B,)) factors through the condensed and normal
+systems with the `dense` and `pallas` backends, one factor per lane and a
+per-lane `factor_ok`; the batched MPC kernel (`solver/mpc.py`) refuses the
+other backends.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .blocked_dense import blocked_ldl, factor_inv_chol, inv_unit_lower
-from .kernels import KKTVec, slacks
+from .kernels import KKTVec, matvec, per_lane, slacks
 from .pallas_chol import select_cholesky
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -63,6 +69,7 @@ def torch_dtype(name) -> torch.dtype:
 
 
 class CondensedFactors(NamedTuple):
+    # (a batch has a leading lane axis on each)
     chol_W: Optional[torch.Tensor]   # (n, n) lower Cholesky of scaled W; None for LP
     w_scale: Optional[torch.Tensor]  # (n,) Jacobi scale of W (None for LP)
     w_diag: torch.Tensor             # (n,) pr_diag (used directly when LP)
@@ -103,9 +110,9 @@ class DenseCondensedKKT:
     def _scaled(self, M):
         """Jacobi-scale M to unit diagonal and cast it to fact_dtype.
         Returns (Ms, scale)."""
-        d = torch.diagonal(M)
+        d = torch.diagonal(M, dim1=-2, dim2=-1)
         scale = 1.0 / torch.sqrt(torch.clamp(d.abs(), min=1e-300))
-        Ms = scale[:, None] * M * scale[None, :]
+        Ms = scale[..., :, None] * M * scale[..., None, :]
         if self.fact_dtype is not None and Ms.dtype != self.fact_dtype:
             Ms = Ms.to(self.fact_dtype)
         return Ms, scale
@@ -164,9 +171,10 @@ class DenseCondensedKKT:
 
     @staticmethod
     def _cho_solve(chol, rhs):
-        """L L' x = rhs for a vector or a matrix of columns."""
-        if rhs.dim() == 1:
-            return torch.cholesky_solve(rhs[:, None], chol)[:, 0]
+        """L L' x = rhs for a vector or a matrix of columns (each with a
+        leading lane axis in a batch)."""
+        if rhs.dim() < chol.dim():
+            return torch.cholesky_solve(rhs[..., None], chol)[..., 0]
         return torch.cholesky_solve(rhs, chol)
 
     def _chol_apply(self, chol, scale, r, out_dtype):
@@ -179,17 +187,17 @@ class DenseCondensedKKT:
         if self.blocked:
             return self._factorize_blocked(prob, pr_diag, del_c)
         H, A = prob.H, prob.A
-        m = A.shape[0]
+        m = A.shape[-2]
         if H is None:
             chol_W, w_scale = None, None
-            Winv_AT = A.T / pr_diag[:, None]  # (n, m)
+            Winv_AT = A.mT / pr_diag[..., :, None]  # (n, m)
         else:
-            W = H + torch.diag(pr_diag)
+            W = H + torch.diag_embed(pr_diag)
             chol_W, w_scale = self._chol_scaled(W)
-            rhs = (w_scale[:, None] * A.T).to(chol_W.dtype)
-            Winv_AT = w_scale[:, None] * self._cho_solve(chol_W, rhs).to(A.dtype)
+            rhs = (w_scale[..., :, None] * A.mT).to(chol_W.dtype)
+            Winv_AT = w_scale[..., :, None] * self._cho_solve(chol_W, rhs).to(A.dtype)
         S = A @ Winv_AT
-        S = S - del_c * torch.eye(m, dtype=A.dtype, device=A.device)
+        S = S - del_c[..., None, None] * torch.eye(m, dtype=A.dtype, device=A.device)
         chol_S, s_scale = self._chol_scaled(S)
         W_inv = S_inv = None
         if self.solve_mode == "inverse":
@@ -220,25 +228,26 @@ class DenseCondensedKKT:
         return self._chol_apply(f.chol_S, f.s_scale, r, r.dtype)
 
     def solve(self, f: CondensedFactors, rx, ry):
-        m = f.A.shape[0]
+        m = f.A.shape[-2]
         if m == 0:
             return self._W_solve(f, rx), ry
         # (A W^-1 A' - dc I) dy = A W^-1 rx - ry
-        rhs_y = f.A @ self._W_solve(f, rx) - ry
+        rhs_y = matvec(f.A, self._W_solve(f, rx)) - ry
         dy = self._S_solve(f, rhs_y)
-        dx = self._W_solve(f, rx - f.A.T @ dy)
+        dx = self._W_solve(f, rx - matvec(f.A.mT, dy))
         return dx, dy
 
     def factor_ok(self, f: CondensedFactors) -> torch.Tensor:
-        """All factor diagonals finite and positive (0-d bool tensor)."""
+        """All factor diagonals finite and positive: a 0-d bool tensor, or
+        one per lane (B,) for a batch."""
         def diag_ok(L):
-            d = torch.diagonal(L)
-            return (torch.isfinite(d) & (d > 0)).all()
+            d = torch.diagonal(L, dim1=-2, dim2=-1)
+            return (torch.isfinite(d) & (d > 0)).all(-1)
 
         ok = diag_ok(f.chol_S)  # all() of an empty diagonal is True
         if f.chol_W is not None:
             return ok & diag_ok(f.chol_W)
-        return ok & (f.w_diag > 0).all()
+        return ok & (f.w_diag > 0).all(-1)
 
 
 class DenseNormalKKT(DenseCondensedKKT):
@@ -414,11 +423,13 @@ def kkt_mul(prob, del_w, del_c, x, lb, ub, has_lb, has_ub, zl, zu, v):
         wzl = zl.vx + sl.vzl          (masked; 0 off-mask)
         wzu = -zu.vx + su.vzu         (masked)
 
-    `prob` is any problem object exposing hess_mv/jac_mv/jac_rmv.
+    `prob` is any problem object exposing hess_mv/jac_mv/jac_rmv; on a
+    batch del_w and del_c are per lane (B,).
     """
     sl, su = slacks(x, lb, ub, has_lb, has_ub)
-    wx = del_w * v.x + prob.jac_rmv(v.y) - v.zl + v.zu + prob.hess_mv(v.x)
-    wy = prob.jac_mv(v.x) + del_c * v.y
+    wx = (per_lane(del_w) * v.x + prob.jac_rmv(v.y) - v.zl + v.zu
+          + prob.hess_mv(v.x))
+    wy = prob.jac_mv(v.x) + per_lane(del_c) * v.y
     wzl = torch.where(has_lb, zl * v.x + sl * v.zl, 0.0)
     wzu = torch.where(has_ub, -zu * v.x + su * v.zu, 0.0)
     return KKTVec(x=wx, y=wy, zl=wzl, zu=wzu)

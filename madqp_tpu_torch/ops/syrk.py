@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-from pathlib import Path
 
 import torch
 
@@ -105,13 +104,6 @@ def syrk_tile_ops(r: int, c: int, k: int) -> float:
     below it), padding included."""
     tc, tr = math.ceil(c / TILE), math.ceil(r / TILE)
     return float(2 * k * TILE * TILE * (tc * (tc + 1) // 2 + (tr - tc) * tc))
-
-
-def build_library() -> Path:
-    """Compile csrc/syrk.cu into the build directory (skipped when the
-    library for this source and its headers already exists); see
-    `_build`."""
-    return _build.build(SOURCE)
 
 
 def _check_tile(lib) -> None:

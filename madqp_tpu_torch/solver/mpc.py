@@ -15,6 +15,12 @@ into one XLA program (`lax.while_loop`, `lax.scan`, `lax.switch`,
   * everything else (ratio tests, Gondzio acceptance, step lengths) stays
     in 0-d tensors on the device, selected with `torch.where`.
 
+`BatchedMPCKernel` runs the same iteration over a batch of problems
+(leading lane axis), lane-masked: it reproduces what `jax.vmap` makes of
+the reference's `iteration`, with the device-side math of `MPCKernel`
+(residuals, solve_system, direction, step rule, regularization, the
+starting point) shared by both.
+
 The numerics are the reference's: refinement starts from d = 0 and runs
 1 + max_refine_steps correction steps (step 0 is the plain backsolve), the
 phase lists are predictor/corrector/Gondzio and, on the first call, the two
@@ -27,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import kernels as K
-from ..ops.kkt import kkt_mul, make_kkt, torch_dtype
+from ..ops.kkt import DenseCondensedKKT, kkt_mul, make_kkt, torch_dtype
 from ..utils.options import (
     IPMOptions,
     AdaptiveRegularization,
@@ -55,11 +61,31 @@ _GONDZIO_BETA_MIN = 0.1
 _GONDZIO_BETA_MAX = 10.0
 _GONDZIO_TAU = 0.995
 _GONDZIO_ACCEPT = 1.005   # reference src/solver.jl:241
+# The ROADMAP.md item that brings the remaining KKT backends to a batch.
+BATCH_ITEM = "Queue 1, item 18"
 
 
 def _select(pred, a: K.KKTVec, b: K.KKTVec) -> K.KKTVec:
-    """Field-wise torch.where(pred, a, b) for a device-side 0-d pred."""
+    """Field-wise torch.where(pred, a, b) for a device-side pred: 0-d, or
+    one per lane (B,) for a batch."""
+    pred = K.per_lane(pred)
     return K.KKTVec(*(torch.where(pred, u, v) for u, v in zip(a, b)))
+
+
+def select_lanes(pred: torch.Tensor, a, b):
+    """Lane by lane, `a` where pred (B,) holds and `b` elsewhere, over
+    every tensor field of two NamedTuples of one type (states, factors;
+    a KKTVec field is selected field-wise).  A field that is not a tensor
+    (None, a host flag) is taken from `a`: it must be the same in both."""
+    def pick(u, v):
+        if isinstance(u, K.KKTVec):
+            return K.KKTVec(*(pick(x, y) for x, y in zip(u, v)))
+        if not isinstance(u, torch.Tensor) or u is v:
+            return u
+        return torch.where(pred.view(pred.shape + (1,) * (u.dim() - pred.dim())),
+                           u, v)
+
+    return type(a)(*(pick(u, v) for u, v in zip(a, b)))
 
 
 class MPCKernel:
@@ -84,9 +110,9 @@ class MPCKernel:
     # -- model callbacks (dense; reference L3 eval wrappers) ----------------
 
     def objective(self, p, x):
-        val = p.c0 + torch.dot(p.c, x)
+        val = p.c0 + K.dot(p.c, x)
         if not p.is_lp:
-            val = val + 0.5 * torch.dot(x, p.hess_mv(x))
+            val = val + 0.5 * K.dot(x, p.hess_mv(x))
         return val
 
     def gradient(self, p, x):
@@ -196,29 +222,42 @@ class MPCKernel:
 
     # -- direction: predictor + corrector + Gondzio ---------------------------
 
-    def _direction(self, p, factors, g, jacl, c_res, mu_curr, n_bounded,
-                   x, lb, ub, zl, zu, del_w, del_c, initialized):
+    def _n_bounded(self, p):
+        """Barrier-gate count: bounded entries, or with
+        barrier_gate="one-sided" the reference's one-sided gate
+        (src/kernels.jl:227-233)."""
+        if self.opts.barrier_gate == "one-sided":
+            return ((p.has_lb & ~p.has_ub).sum(-1)
+                    + (~p.has_lb & p.has_ub).sum(-1))
+        return p.has_lb.sum(-1) + p.has_ub.sum(-1)
+
+    def _direction(self, p, state: IPMState, factors, g, jacl, c_res,
+                   del_w, del_c):
         """Returns (d, mu_new, failed): the search direction after predictor
         + corrector + max_ncorr Gondzio corrections (reference
         src/solver.jl:200-251,294-324), the updated barrier, and the
-        accumulated hard-failure flag (0-d bool tensor).  With initialized
-        == False it instead runs the two starting-point least-squares solves
-        (reference src/solver.jl:6-33): with zl = zu = 0 the unreduced KKT
-        degenerates exactly to the del_w-regularized least-squares system."""
+        accumulated hard-failure flag (a bool tensor, one per lane in a
+        batch).  Before the starting point (state.initialized False) it
+        instead runs the two starting-point least-squares solves (reference
+        src/solver.jl:6-33): with zl = zu = 0 the unreduced KKT degenerates
+        exactly to the del_w-regularized least-squares system."""
+        x, zl, zu, lb, ub = state.x, state.zl, state.zu, state.lb, state.ub
         masks = (p.has_lb, p.has_ub)
         bounds = (x, lb, ub, *masks, zl, zu)
         opt = self.opts
+        mu_curr = K.complementarity_measure(*bounds)
+        lanes = x.shape[:-1]
 
         def solve(rhs):
             return self.solve_system(p, factors, rhs, x, lb, ub, zl, zu,
                                      del_w, del_c)
 
-        if not initialized:
+        if not state.initialized:
             d_p, _ = solve(K.initial_primal_rhs(c_res, p.n, self.dtype))
             d_d, _ = solve(K.initial_dual_rhs(g, p.m, self.dtype))
             zero_n = torch.zeros_like(x)
             d = K.KKTVec(x=d_p.x, y=d_d.y, zl=zero_n, zu=zero_n)
-            return d, mu_curr, torch.zeros((), dtype=torch.bool, device=x.device)
+            return d, mu_curr, torch.zeros(lanes, dtype=torch.bool, device=x.device)
 
         # Predictor.
         d, ok = solve(K.predictor_rhs(g, jacl, c_res, *bounds))
@@ -229,8 +268,8 @@ class MPCKernel:
         mu_aff = K.affine_complementarity_measure(d, *bounds, a_aff_p, a_aff_d)
         corr_lb, corr_ub = K.mehrotra_correction(d, *masks)
         bar = opt.barrier_update
-        mu_new = K.mehrotra_barrier(mu_curr, mu_aff, n_bounded, opt.mu_min,
-                                    bar.sigma_min, bar.sigma_max)
+        mu_new = K.mehrotra_barrier(mu_curr, mu_aff, self._n_bounded(p),
+                                    opt.mu_min, bar.sigma_min, bar.sigma_max)
         d, ok = solve(K.correction_rhs(g, jacl, c_res, *bounds, mu_new,
                                        corr_lb, corr_ub))
         failed = failed | ~ok
@@ -240,7 +279,7 @@ class MPCKernel:
         # Gondzio multi-centrality corrections; a correction is kept only
         # when it lengthens both steps, and the loop goes inactive after
         # the first rejection (device-side selects, no host sync).
-        active = torch.ones((), dtype=torch.bool, device=x.device)
+        active = torch.ones(lanes, dtype=torch.bool, device=x.device)
         for _ in range(opt.max_ncorr):
             tilde_p = torch.clamp(a_p + _GONDZIO_DELTA, max=1.0)
             tilde_d = torch.clamp(a_d + _GONDZIO_DELTA, max=1.0)
@@ -257,8 +296,8 @@ class MPCKernel:
                       & (hat_d >= _GONDZIO_ACCEPT * a_d) & active)
             failed = failed | (active & ~ok)
             d = _select(accept, d_new, d)
-            corr_lb = torch.where(accept, cand_lb, corr_lb)
-            corr_ub = torch.where(accept, cand_ub, corr_ub)
+            corr_lb = torch.where(K.per_lane(accept), cand_lb, corr_lb)
+            corr_ub = torch.where(K.per_lane(accept), cand_ub, corr_ub)
             a_p = torch.where(accept, hat_p, a_p)
             a_d = torch.where(accept, hat_d, a_d)
             active = accept
@@ -266,7 +305,14 @@ class MPCKernel:
 
     # -- one MPC iteration (src/solver.jl:254-344) ---------------------------
 
-    def iteration(self, p: ProblemArrays, state: IPMState) -> IPMState:
+    def _residuals(self, p: ProblemArrays, state: IPMState):
+        """Objective and scaled residual norms at the current iterate, stored
+        in the state.  Returns (state, g, c_res, jacl, worst, diverged):
+        worst is the largest scaled residual, diverged the infeasibility
+        signature (a detection the reference lacks): dual side converged +
+        primal infeasibility stuck + diverging multipliers => primal
+        infeasible; the mirrored conditions with a diverging primal iterate
+        => dual infeasible (unbounded)."""
         masks = (p.has_lb, p.has_ub)
         x, y, zl, zu, lb, ub = state.x, state.y, state.zl, state.zu, state.lb, state.ub
 
@@ -285,11 +331,6 @@ class MPCKernel:
         )
 
         worst = torch.maximum(torch.maximum(inf_pr, inf_du), inf_compl)
-        initialized = state.initialized
-        # Infeasibility signature (a detection the reference lacks): dual
-        # side converged + primal infeasibility stuck + diverging
-        # multipliers => primal infeasible; the mirrored conditions with a
-        # diverging primal iterate => dual infeasible (unbounded).
         tol = self.opts.tol
         stuck = 1e3 * tol
         dual_mag = torch.maximum(
@@ -303,10 +344,15 @@ class MPCKernel:
             (inf_pr <= tol) & (inf_compl <= tol) & (inf_du > stuck)
             & (K._inf_norm(x) > self.opts.diverge_tol)
         )
+        return state, g, c_res, jacl, worst, primal_infeas | dual_infeas
+
+    def iteration(self, p: ProblemArrays, state: IPMState) -> IPMState:
+        state, g, c_res, jacl, worst, diverged = self._residuals(p, state)
+        initialized = state.initialized
         improved = worst < 0.9 * state.best_worst
         # One device sync for every termination decision of this iteration.
         converged, diverged, improved = torch.stack(
-            [worst <= tol, primal_infeas | dual_infeas, improved]).tolist()
+            [worst <= self.opts.tol, diverged, improved]).tolist()
         if converged:
             new_status = SUCCESS
         elif diverged:
@@ -340,74 +386,70 @@ class MPCKernel:
                                           else state.status))
         return self._work(p, state, g, c_res, jacl)
 
+    def _work_regularization(self, p, state: IPMState):
+        """(del_w, del_c, reg_p, reg_d) of this iteration's factorization.
+        The first call (starting point) keeps the init-regularization seeds
+        stored by init_state (reference src/solver.jl:16-18)."""
+        if state.initialized:
+            return self._update_regularization(p, state)
+        return state.del_w, state.del_c, state.reg_p, state.reg_d
+
     def _work(self, p, state: IPMState, g, c_res, jacl) -> IPMState:
-        masks = (p.has_lb, p.has_ub)
-        x, y, zl, zu, lb, ub = state.x, state.y, state.zl, state.zu, state.lb, state.ub
-        initialized = state.initialized
-        if initialized:
-            del_w, del_c, reg_p, reg_d = self._update_regularization(p, state)
-        else:
-            # First call (starting point): keep the init-regularization
-            # seeds stored by init_state (reference src/solver.jl:16-18).
-            del_w, del_c, reg_p, reg_d = (state.del_w, state.del_c,
-                                          state.reg_p, state.reg_d)
+        del_w, del_c, reg_p, reg_d = self._work_regularization(p, state)
         factors, del_w, del_c, fact_ok = self.factorize_with_retry(
-            p, x, lb, ub, zl, zu, del_w, del_c
+            p, state.x, state.lb, state.ub, state.zl, state.zu, del_w, del_c
         )
-
-        # Barrier-gate count: bounded entries, or with
-        # barrier_gate="one-sided" the reference's one-sided gate
-        # (src/kernels.jl:227-233).
-        mu_curr = K.complementarity_measure(x, lb, ub, *masks, zl, zu)
-        if self.opts.barrier_gate == "one-sided":
-            n_bounded = ((p.has_lb & ~p.has_ub).sum()
-                         + (~p.has_lb & p.has_ub).sum())
-        else:
-            n_bounded = p.has_lb.sum() + p.has_ub.sum()
-
         d, mu_new, dir_failed = self._direction(
-            p, factors, g, jacl, c_res, mu_curr, n_bounded,
-            x, lb, ub, zl, zu, del_w, del_c, initialized,
-        )
-
-        if not initialized:
-            # First call: finish the Mehrotra starting point (reference
-            # src/solver.jl:37-123 — bound-dual init from the dual residual,
-            # positivity + second-order shifts, Ipopt projection).  Solve
-            # failures are not fatal here, matching the reference.
-            xi = x + d.x
-            yi = d.y
-            r = g + self.jtprod(p, yi)
-            ones_n = torch.ones_like(x)
-            zli, zui = K.init_bound_duals(r, *masks, ones_n, ones_n)
-            xi, zli, zui = K.mehrotra_positivity_shift(
-                xi, lb, ub, *masks, zli, zui
-            )
-            xi = K.project_bound_fac(xi, lb, ub, *masks, self.opts.bound_fac)
-            return state._replace(
-                x=xi, y=yi, zl=zli, zu=zui,
-                mu=self._scalar(p, self.opts.mu_init),
-                del_w=del_w, del_c=del_c, reg_p=reg_p, reg_d=reg_d,
-                obj_val=self.objective(p, xi),
-                n_fact=state.n_fact + 1,
-                n_solve=state.n_solve + 2,
-                initialized=True,
-            )
-
+            p, state, factors, g, jacl, c_res, del_w, del_c)
+        regs = (del_w, del_c, reg_p, reg_d)
+        if not state.initialized:
+            return self._starting_point(p, state, g, d, *regs)
         if not fact_ok or dir_failed.item():
             return state._replace(status=STEP_ERROR)
+        return self._advance(p, state, d, mu_new, *regs)
 
-        # Step computation + iterate update.
+    def _starting_point(self, p, state: IPMState, g, d, del_w, del_c,
+                        reg_p, reg_d) -> IPMState:
+        """First call: finish the Mehrotra starting point (reference
+        src/solver.jl:37-123 — bound-dual init from the dual residual,
+        positivity + second-order shifts, Ipopt projection).  Solve
+        failures are not fatal here, matching the reference."""
+        masks = (p.has_lb, p.has_ub)
+        xi = state.x + d.x
+        yi = d.y
+        r = g + self.jtprod(p, yi)
+        ones_n = torch.ones_like(state.x)
+        zli, zui = K.init_bound_duals(r, *masks, ones_n, ones_n)
+        xi, zli, zui = K.mehrotra_positivity_shift(
+            xi, state.lb, state.ub, *masks, zli, zui
+        )
+        xi = K.project_bound_fac(xi, state.lb, state.ub, *masks, self.opts.bound_fac)
+        return state._replace(
+            x=xi, y=yi, zl=zli, zu=zui,
+            mu=self._scalar(p, self.opts.mu_init),
+            del_w=del_w, del_c=del_c, reg_p=reg_p, reg_d=reg_d,
+            obj_val=self.objective(p, xi),
+            n_fact=state.n_fact + 1,
+            n_solve=state.n_solve + 2,
+            initialized=True,
+        )
+
+    def _advance(self, p, state: IPMState, d, mu_new, del_w, del_c,
+                 reg_p, reg_d) -> IPMState:
+        """Step computation + iterate update."""
+        masks = (p.has_lb, p.has_ub)
+        x, y, zl, zu, lb, ub = state.x, state.y, state.zl, state.zu, state.lb, state.ub
         alpha_p, alpha_d = self._step_rule(p, d, x, lb, ub, zl, zu, mu_new)
-        x_new = x + alpha_p * d.x
+        a_p, a_d = K.per_lane(alpha_p), K.per_lane(alpha_d)
+        x_new = x + a_p * d.x
         lb_new, ub_new = K.adjust_boundary(
             x_new, lb, ub, *masks, mu_new, self.eps
         )
         return state._replace(
             x=x_new,
-            y=y + alpha_d * d.y,
-            zl=torch.where(p.has_lb, zl + alpha_d * d.zl, 0.0),
-            zu=torch.where(p.has_ub, zu + alpha_d * d.zu, 0.0),
+            y=y + a_d * d.y,
+            zl=torch.where(p.has_lb, zl + a_d * d.zl, 0.0),
+            zu=torch.where(p.has_ub, zu + a_d * d.zu, 0.0),
             lb=lb_new, ub=ub_new,
             d=d, mu=mu_new,
             del_w=del_w, del_c=del_c, reg_p=reg_p, reg_d=reg_d,
@@ -476,3 +518,116 @@ class MPCKernel:
         return self._initial_state(p, x, y0, zero_n, zero_n, lb, ub,
                                    self._scalar(p, opt.mu_init),
                                    K._inf_norm(self.gradient(p, x)), False)
+
+
+class BatchedMPCKernel(MPCKernel):
+    """The MPC iteration over a batch of problems (a leading lane axis on
+    every tensor), lane-masked: what `jax.vmap` makes of the reference's
+    `MPCKernel.iteration` (madqp_tpu/solver/mpc.py:406-590).
+
+    * The finish/work `lax.cond` is a per-lane select: a lane whose status
+      has left RUNNING keeps its iterate, and its `k` stops.
+    * The retry `while_loop` is per lane: a lane that factors on trial 0
+      keeps its factor and its `del_w`/`del_c`; only the lanes that failed
+      escalate.  The loop runs while a working lane has failed and has
+      trials left: one host sync per trial.
+    * Stall detection and the termination flags are per lane; one host
+      sync per iteration skips the work when no lane works any more.
+    The scalars of the state are (B,) tensors, the counters and the status
+    int64 (B,); `initialized` stays one host bool, since all lanes start
+    and warm-restart together.  The host loop that steps it
+    (`parallel/batched.py::run_lanes`) freezes the lanes that had stopped
+    before the call, as the vmapped `while_loop` does.
+
+    The KKT backends with a batched form are the condensed and normal
+    systems on `dense` and `pallas` (K1 in its one-CTA-per-matrix form);
+    the others raise `NotImplementedError` naming ROADMAP.md's item."""
+
+    def __init__(self, opts: IPMOptions, kkt=None):
+        super().__init__(opts, kkt)
+        unported = (f"kkt_system={opts.kkt_system!r}"
+                    if not isinstance(self.kkt, DenseCondensedKKT)
+                    else "linear_solver='blocked'" if opts.linear_solver == "blocked"
+                    else "solve_mode='inverse'" if opts.solve_mode == "inverse"
+                    else None)
+        if unported:
+            raise NotImplementedError(
+                f"{unported} on a batch of problems is not ported yet "
+                f"(ROADMAP.md {BATCH_ITEM})")
+
+    def _scalar(self, p, value) -> torch.Tensor:
+        return torch.full(p.c.shape[:-1], value, dtype=self.dtype,
+                          device=p.c.device)
+
+    def _counter(self, p, value=0) -> torch.Tensor:
+        return torch.full(p.c.shape[:-1], value, dtype=torch.int64,
+                          device=p.c.device)
+
+    def _initial_state(self, p, *args) -> IPMState:
+        zero = self._counter(p)
+        return super()._initial_state(p, *args)._replace(
+            k=zero, n_fact=zero, n_solve=zero,
+            status=self._counter(p, RUNNING), stall_k=zero)
+
+    def factorize_with_retry(self, p, x, lb, ub, zl, zu, del_w, del_c, active):
+        """Per-lane retry over the lanes in `active` (B,): a lane whose
+        factor fails escalates both regularizations by 100x (zero seeded
+        with a small nonzero), up to 3 trials.  Each trial factors the
+        whole batch and keeps the new factor only in the retried lanes.
+        Returns (factors, del_w, del_c, ok) with ok (B,) on the device."""
+        dw, dc = del_w, del_c
+        f, ok = self._factorize(p, x, lb, ub, zl, zu, dw, dc)
+        for _ in range(1, _MAX_FACT_TRIALS):
+            retry = active & ~ok
+            if not bool(retry.any()):
+                break
+            dw = torch.where(retry, torch.where(dw != 0.0, dw * _REG_ESCALATION, 1e-8), dw)
+            dc = torch.where(retry, torch.where(dc != 0.0, dc * _REG_ESCALATION, -1e-8), dc)
+            f_new, ok_new = self._factorize(p, x, lb, ub, zl, zu, dw, dc)
+            f = select_lanes(retry, f_new, f)
+            ok = torch.where(retry, ok_new, ok)
+        return f, dw, dc, ok
+
+    def iteration(self, p: ProblemArrays, state: IPMState) -> IPMState:
+        state, g, c_res, jacl, worst, diverged = self._residuals(p, state)
+        opt = self.opts
+        if state.initialized:
+            new_status = torch.where(
+                worst <= opt.tol, SUCCESS,
+                torch.where(diverged, DIVERGED,
+                            torch.where(state.k >= opt.max_iter, MAX_ITER, RUNNING)))
+        else:
+            new_status = self._counter(p, RUNNING)
+        if opt.stall_exit > 0:
+            if state.initialized:
+                stall_k = torch.where(worst < 0.9 * state.best_worst, 0,
+                                      state.stall_k + 1)
+                best = torch.minimum(worst, state.best_worst)
+            else:
+                stall_k, best = self._counter(p), state.best_worst
+            new_status = torch.where(
+                (new_status == RUNNING) & (stall_k >= opt.stall_exit),
+                STALLED, new_status)
+            state = state._replace(best_worst=best, stall_k=stall_k)
+
+        running = state.status == RUNNING
+        finished = state._replace(status=torch.where(running, new_status, state.status))
+        work = running & (new_status == RUNNING)
+        if not bool(work.any()):  # one sync: the last call factors nothing
+            return finished
+        return select_lanes(work, self._work(p, state, g, c_res, jacl, work),
+                            finished)
+
+    def _work(self, p, state: IPMState, g, c_res, jacl, active) -> IPMState:
+        del_w, del_c, reg_p, reg_d = self._work_regularization(p, state)
+        factors, del_w, del_c, fact_ok = self.factorize_with_retry(
+            p, state.x, state.lb, state.ub, state.zl, state.zu, del_w, del_c,
+            active)
+        d, mu_new, dir_failed = self._direction(
+            p, state, factors, g, jacl, c_res, del_w, del_c)
+        regs = (del_w, del_c, reg_p, reg_d)
+        if not state.initialized:
+            return self._starting_point(p, state, g, d, *regs)
+        return select_lanes(~fact_ok | dir_failed,
+                            state._replace(status=self._counter(p, STEP_ERROR)),
+                            self._advance(p, state, d, mu_new, *regs))

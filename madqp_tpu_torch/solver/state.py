@@ -6,6 +6,12 @@ working dtype).  The loop is stepped on the host, so the integer counters
 (`k`, `n_fact`, `n_solve`, `stall_k`), the in-loop `status` code and the
 `initialized` flag are plain Python ints and bools: every branch on them is
 a host decision with no device sync.
+
+A batch of problems (the batched solver, `parallel/batched.py`) uses the
+same two types with a leading lane axis on every tensor: vectors (B, n),
+matrices (B, m, n), scalars (B,).  There the counters and the status are
+per-lane int64 tensors (B,), since lanes stop at different iterations;
+`initialized` stays one host bool, because all lanes start together.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..models.qp import StandardQP
-from ..ops.kernels import KKTVec
+from ..ops.kernels import KKTVec, matvec
 
 # In-loop status codes (mapped to utils.Status by the driver).
 RUNNING = 0
@@ -45,11 +51,11 @@ class ProblemArrays(NamedTuple):
 
     @property
     def n(self) -> int:
-        return self.c.shape[0]
+        return self.c.shape[-1]
 
     @property
     def m(self) -> int:
-        return self.b.shape[0]
+        return self.b.shape[-1]
 
     @property
     def is_lp(self) -> bool:
@@ -57,15 +63,15 @@ class ProblemArrays(NamedTuple):
 
     def hess_mv(self, x):
         """H @ x (zero for LPs)."""
-        return torch.zeros_like(x) if self.H is None else self.H @ x
+        return torch.zeros_like(x) if self.H is None else matvec(self.H, x)
 
     def jac_mv(self, x):
         """A @ x."""
-        return self.A @ x
+        return matvec(self.A, x)
 
     def jac_rmv(self, y):
         """A' @ y."""
-        return self.A.T @ y
+        return matvec(self.A.mT, y)
 
 
 class IPMState(NamedTuple):
@@ -96,7 +102,7 @@ class IPMState(NamedTuple):
     d_norm: torch.Tensor
     norm_b: torch.Tensor
     norm_c: torch.Tensor
-    # Host-side counters / status.
+    # Host-side counters / status (per-lane int64 tensors in a batch).
     k: int        # iteration counter
     n_fact: int   # factorization count
     n_solve: int  # backsolve count

@@ -242,7 +242,7 @@ def test_port_never_imports_jax():
                                REPO / "tools" / "profile_torch.py"]
     assert len(files) > 10
     new_modules = {"ops/_build.py", "ops/syrk.py", "ops/blocked_dense.py",
-                   "parallel/__init__.py", "parallel/batched.py"}
+                   "parallel/__init__.py", "parallel/batched.py", "diff.py"}
     assert new_modules <= {f.relative_to(PORT_DIR).as_posix() for f in sources}
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []

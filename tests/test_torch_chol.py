@@ -113,3 +113,54 @@ def test_dense_cholesky_nan_contract(dtype):
 def test_select_cholesky():
     assert K1.select_cholesky("pallas") is K1.cholesky_lower
     assert K1.select_cholesky("xla") is K1.dense_cholesky
+
+
+# ---------------------------------------------------------------------------
+# A stack of matrices (the batched solver's factorizations)
+# ---------------------------------------------------------------------------
+
+
+def spd_stack(batch, n, dtype, seed):
+    return np.stack([spd(n, dtype, seed + i) for i in range(batch)])
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("batch,n", [(3, 37), (4, 64), (2, 129), (5, 1)])
+def test_plain_stack_matches_vmapped_pallas(batch, n, dtype):
+    """The plain version on a (B, n, n) stack against the Pallas kernel
+    under jax.vmap (one program per matrix, as the batched solver runs it),
+    interpret mode, with the single-matrix tolerances."""
+    import jax
+
+    A = spd_stack(batch, n, dtype, seed=n)
+    want = np.asarray(jax.vmap(lambda a: pallas_cholesky(a, interpret=True))(A))
+    got = K1.cholesky_lower_reference(torch.from_numpy(A)).numpy()
+    assert got.dtype == dtype and got.shape == A.shape
+    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+    assert np.all(np.triu(got, 1) == 0)
+
+
+@pytest.mark.parametrize("factor", ["plain", "dense"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_stack_nan_contract_per_lane(factor, dtype):
+    """One non-SPD matrix in a stack: NaN (or a non-positive value) on its
+    own diagonal only; every other factor equals that matrix's factor
+    alone.  The same for the library route (dense_cholesky)."""
+    fn = K1.cholesky_lower_reference if factor == "plain" else K1.dense_cholesky
+    A = spd_stack(4, 70, dtype, seed=3)
+    A[2] = not_spd(70, dtype, seed=5)
+    L = fn(torch.from_numpy(A))
+    for i in range(4):
+        assert diag_ok(L[i].numpy()) is (i != 2)
+        if i != 2:
+            torch.testing.assert_close(L[i], fn(torch.from_numpy(A[i])),
+                                       rtol=0, atol=1e-13 if dtype == np.float64 else 1e-5)
+    assert np.isnan(L[2].numpy()[-1, -1]) or factor == "dense"
+
+
+def test_wrapper_on_a_stack_uses_plain_version_on_cpu():
+    A = torch.from_numpy(spd_stack(3, 20, np.float64, seed=1))
+    before = K1.cholesky_lower.launches
+    L = K1.cholesky_lower(A)
+    assert K1.cholesky_lower.launches == before
+    assert torch.equal(L, K1.cholesky_lower_reference(A))

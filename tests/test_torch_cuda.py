@@ -82,6 +82,65 @@ def test_kernel_rejects_non_contiguous(cuda):
         K1.cholesky_lower(A)
 
 
+def spd_stack(batch, n, seed):
+    return np.stack([spd(n, seed=seed + i) for i in range(batch)])
+
+
+def batched_order(n, dtype):
+    """An order, or "max" / "max+1": the largest order the one-CTA kernel
+    holds in shared memory on this card, and the first one it does not."""
+    if isinstance(n, int):
+        return n
+    n_max = K1.batched_max_n(dtype, "cuda")
+    return n_max + (n == "max+1")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("batch,n", [(512, 42), (512, 16), (64, 1), (64, 63),
+                                     (64, 64), (64, 65), (16, "max"),
+                                     (16, "max+1"), (4, 600)])
+def test_batched_kernel_matches_plain(cuda, batch, n, dtype, tol):
+    """Each factor of a stack within the smoke's tolerances of the plain
+    version (relative to its max|L|), zero above the diagonal; one launch
+    for a stack the one-CTA kernel holds, one per matrix above that."""
+    n = batched_order(n, dtype)
+    A = torch.as_tensor(spd_stack(batch, n, seed=n), dtype=dtype, device=cuda)
+    before = K1.cholesky_lower.launches
+    L = K1.cholesky_lower(A)
+    torch.cuda.synchronize()
+    one_cta = n <= K1.batched_max_n(dtype, cuda)
+    assert K1.cholesky_lower.launches == before + (1 if one_cta else batch)
+    Lp = K1.cholesky_lower_reference(A)
+    err = (L - Lp).abs().amax(dim=(1, 2))
+    assert bool((err <= tol * Lp.abs().amax(dim=(1, 2))).all())
+    assert bool((torch.triu(L, 1) == 0).all())
+    assert torch.equal(L, K1.cholesky_lower(A))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("batch,n", [(8, 42), (8, 16), (4, 65), (3, "max+1")])
+def test_batched_kernel_nan_contract_per_lane(cuda, batch, n, dtype):
+    """One non-SPD matrix in the stack: NaN on its own diagonal at the
+    plain version's places; every other factor equals its factor alone."""
+    n = batched_order(n, dtype)
+    A = torch.as_tensor(spd_stack(batch, n, seed=1), dtype=dtype, device=cuda)
+    bad = batch // 2
+    A[bad, n // 2, n // 2] = -1.0
+    L, Lp = K1.cholesky_lower(A), K1.cholesky_lower_reference(A)
+    for i in range(batch):
+        assert diag_ok(L[i]) is (i != bad)
+        assert torch.equal(torch.isnan(torch.diagonal(L[i])),
+                           torch.isnan(torch.diagonal(Lp[i])))
+    good = [i for i in range(batch) if i != bad]
+    assert torch.equal(L[good], K1.cholesky_lower(A[good].contiguous()))
+
+
+def test_batched_kernel_rejects_non_contiguous(cuda):
+    A = torch.eye(8, dtype=torch.float64, device=cuda).expand(4, 8, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        K1.cholesky_lower(A)
+
+
 @pytest.mark.parametrize("fact", ["", "float32"])
 def test_solve_on_card_matches_cpu(cuda, fact):
     """The same solve on the card (K1) and on the CPU (plain version)."""
@@ -205,3 +264,46 @@ def test_blocked_solve_on_card_matches_cpu(cuda):
     per_trial = len(blocked_dense.panel_update_shapes(1024))
     assert per_trial == 3
     assert launches == per_trial * got.counters.factorizations > 0
+
+
+@pytest.mark.parametrize("backend", ["pallas", "dense"])
+def test_batched_solve_on_card_matches_cpu(cuda, backend):
+    """A padded batch on the card (batched K1 with pallas: two launches per
+    factorization trial of the batch) and on the CPU (plain version)."""
+    qps = [mt.dense_dummy_qp(20 + i, 8, seed=i) for i in range(6)]
+    kw = dict(print_level=40, linear_solver=backend, factorization_dtype="float32",
+              max_refine_steps=1, endgame="f64")
+    before = K1.cholesky_lower.launches
+    got = mt.solve_batched(qps, device=cuda, **kw)
+    launches = K1.cholesky_lower.launches - before
+    want = mt.solve_batched(qps, device="cpu", **kw)
+    for g, w in zip(got, want):
+        assert g.success and w.success
+        assert abs(g.iter - w.iter) <= 1
+        assert g.objective == pytest.approx(w.objective, rel=1e-8)
+    assert (launches > 0 and launches % 2 == 0) if backend == "pallas" else launches == 0
+
+
+def test_qp_layer_on_card_matches_cpu(cuda):
+    """Forward and backward of a batched qp_layer on the card equal the
+    same call on CPU tensors (float64)."""
+    rng = np.random.default_rng(0)
+    n, m, lanes = 10, 3, 5
+    M = rng.normal(size=(lanes, n, n))
+    H = M @ M.transpose(0, 2, 1) + n * np.eye(n)
+    c = rng.normal(size=(lanes, n))
+    A = rng.normal(size=(lanes, m, n))
+    x0 = rng.normal(size=(lanes, n))
+    b = np.einsum("lmn,ln->lm", A, x0)
+    lb, ub = x0 - 0.5, x0 + 0.5
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        ts = [torch.tensor(a, device=dev, requires_grad=True) for a in (H, c, A, b, lb, ub)]
+        sol = mt.qp_layer(*ts, tol=1e-10, print_level=40, linear_solver="pallas")
+        (sol.x ** 2).sum().backward()
+        grads[dev.type] = [t.grad.cpu() for t in ts] + [sol.iters.cpu()]
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        if g.dtype == torch.int64:
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-8, atol=1e-8 * float(w.abs().max()))

@@ -165,3 +165,80 @@ def test_kernel_matches_reference(name, seed):
         np.testing.assert_allclose(g[finite], w[finite], rtol=RTOL,
                                    atol=RTOL * scale)
         np.testing.assert_array_equal(g[~finite], w[~finite])
+
+
+# ---------------------------------------------------------------------------
+# A batch of problems: vectors (B, n), per-lane scalars (B,)
+# ---------------------------------------------------------------------------
+
+LANES = 3
+LANE_RTOL = 1e-15
+
+
+def _stack(setups):
+    """One setup per lane, stacked on a leading lane axis (the direction
+    `d` part by part)."""
+    out = {}
+    for key, v in setups[0].items():
+        if key == "d":
+            out[key] = tuple(np.stack([s["d"][i] for s in setups]) for i in range(4))
+        else:
+            out[key] = np.stack([s[key] for s in setups])
+    return out
+
+
+def _lane_arg(a, i):
+    """Lane i of an argument: arrays with a lane axis are sliced; 0-d
+    arrays, Python numbers and the static sizes are shared."""
+    if isinstance(a, tuple) and a[0] == "KKTVEC":
+        return ("KKTVEC", tuple(v[i] for v in a[1]))
+    return np.asarray(a[i]) if isinstance(a, np.ndarray) and a.ndim else a
+
+
+def _in_axis(a):
+    if isinstance(a, tuple) and a[0] == "KKTVEC":
+        return JK.KKTVec(0, 0, 0, 0)
+    return 0 if isinstance(a, np.ndarray) and a.ndim else None
+
+
+def _assert_close(g, w, rtol):
+    assert g.shape == w.shape
+    if np.issubdtype(w.dtype, np.integer) or w.dtype == bool:
+        np.testing.assert_array_equal(g, w)
+        return
+    assert g.dtype == np.float64
+    finite = np.isfinite(w)
+    np.testing.assert_array_equal(np.isfinite(g), finite)
+    scale = np.max(np.abs(w[finite]), initial=0.0)
+    np.testing.assert_allclose(g[finite], w[finite], rtol=rtol, atol=rtol * scale)
+    np.testing.assert_array_equal(g[~finite], w[~finite])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernel_on_a_batch(name):
+    """Each function on a (B, n) stack with per-lane scalars (B,): every
+    lane equals the port's function on that lane alone (1e-15 relative),
+    and the whole equals jax.vmap of the JAX function (1e-12): each
+    reduction runs per lane, over the last axis."""
+    import jax
+
+    args = CASES[name](_stack([_setup(10 + i) for i in range(LANES)]))
+    fn = _function(TK, name)
+    got = _leaves(fn(*(_torch_arg(a) for a in args)))
+    for i in range(LANES):
+        alone = _leaves(fn(*(_torch_arg(_lane_arg(a, i)) for a in args)))
+        assert len(alone) == len(got)
+        for g, w in zip(got, alone):
+            _assert_close(g[i], w, LANE_RTOL)
+    static = {j: a for j, a in enumerate(args) if _in_axis(a) is None}
+    mapped = [j for j in range(len(args)) if j not in static]
+
+    def jfn(*lanes):
+        full = dict(static)
+        full.update(zip(mapped, lanes))
+        return _function(JK, name)(*(_jax_arg(full[j]) for j in range(len(args))))
+
+    want = _leaves(jax.vmap(jfn)(*(_jax_arg(args[j]) for j in mapped)))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _assert_close(g, w, RTOL)
