@@ -35,7 +35,7 @@ import torch
 from ..models.qp import QuadraticProblem, StandardQP, TransformInfo, build_standard_form
 from ..ops.kkt import torch_dtype
 from ..solver import state as S
-from ..solver.mpc import BatchedMPCKernel, select_lanes
+from ..solver.mpc import BatchedMPCKernel, select_lanes, tree_map
 from ..solver.state import IPMState, ProblemArrays
 from ..utils import Counters, ExecutionStats, Status, load_options
 from ..utils.options import IPMOptions
@@ -110,30 +110,6 @@ def run_lanes(kernel: BatchedMPCKernel, prob: ProblemArrays,
         state = new if n_running == lanes else select_lanes(running, new, state)
 
 
-def _gather(tree, idx: torch.Tensor):
-    """Lanes `idx` of every tensor field of a NamedTuple (KKTVec fields
-    included; None and host values kept)."""
-    return type(tree)(*(
-        _gather(v, idx) if isinstance(v, tuple)
-        else v[idx] if isinstance(v, torch.Tensor) else v
-        for v in tree))
-
-
-def _scatter(full, idx: torch.Tensor, part):
-    """`full` with lanes `idx` replaced by the first len(idx) lanes of
-    `part`, field by field."""
-    def put(u, v):
-        if isinstance(u, tuple):
-            return type(u)(*(put(a, b) for a, b in zip(u, v)))
-        if not isinstance(u, torch.Tensor):
-            return u
-        out = u.clone()
-        out[idx] = v[: idx.numel()]
-        return out
-
-    return put(full, part)
-
-
 @dataclasses.dataclass
 class BatchedMPCSolver:
     """Solve a batch of QPs in lockstep on one card."""
@@ -153,15 +129,13 @@ class BatchedMPCSolver:
         cls,
         qps: Sequence[QuadraticProblem],
         mesh=None,
-        batch_axis: str = "batch",
         *,
         device="cuda",
         **options,
     ) -> "BatchedMPCSolver":
         """Build the padded batch on `device` (the CUDA card unless the
         caller asks for the CPU).  Every other keyword is a solver option.
-        `mesh` must be None (one card); `batch_axis`, the mesh axis to
-        shard over, is accepted for the reference's signature."""
+        `mesh` must be None (one card)."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: sharding the batch over several devices is not ported "
@@ -257,12 +231,12 @@ class BatchedMPCSolver:
             nl *= 2
         idx = torch.as_tensor(np.concatenate([bad, np.full(nl - bad.size, bad[0])]),
                               device=f1.x.device)
-        sub = _gather(prob, idx)
+        sub = tree_map(lambda v: v[idx], prob)
         f2 = run_lanes(kern2, sub, kern2.init_state_warm(
             sub, f1.x[idx], f1.y[idx], f1.zl[idx], f1.zu[idx],
             self.lb[idx], self.ub[idx]))
         lanes = idx[: bad.size]
-        merged = _scatter(f1, lanes, f2)
+        merged = tree_map(lambda u, v: u.index_put((lanes,), v[: bad.size]), f1, f2)
         return merged._replace(k=f1.k.index_add(0, lanes, f2.k[: bad.size]))
 
     def solve_batch(self, prob: Optional[ProblemArrays] = None) -> IPMState:

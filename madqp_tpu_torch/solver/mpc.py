@@ -72,20 +72,20 @@ def _select(pred, a: K.KKTVec, b: K.KKTVec) -> K.KKTVec:
     return K.KKTVec(*(torch.where(pred, u, v) for u, v in zip(a, b)))
 
 
-def select_lanes(pred: torch.Tensor, a, b):
-    """Lane by lane, `a` where pred (B,) holds and `b` elsewhere, over
-    every tensor field of two NamedTuples of one type (states, factors;
-    a KKTVec field is selected field-wise).  A field that is not a tensor
-    (None, a host flag) is taken from `a`: it must be the same in both."""
-    def pick(u, v):
-        if isinstance(u, K.KKTVec):
-            return K.KKTVec(*(pick(x, y) for x, y in zip(u, v)))
-        if not isinstance(u, torch.Tensor) or u is v:
-            return u
-        return torch.where(pred.view(pred.shape + (1,) * (u.dim() - pred.dim())),
-                           u, v)
+def tree_map(fn, tree, *rest):
+    """`fn` over the matching tensor fields of NamedTuples of one type
+    (states, problems, factors; a KKTVec field field by field).  A field
+    that is not a tensor (None, a host flag) is taken from `tree`: it must
+    be the same in all."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(tree_map(fn, *fields) for fields in zip(tree, *rest)))
+    return fn(tree, *rest) if isinstance(tree, torch.Tensor) else tree
 
-    return type(a)(*(pick(u, v) for u, v in zip(a, b)))
+
+def select_lanes(pred: torch.Tensor, a, b):
+    """Lane by lane, `a` where pred (B,) holds and `b` elsewhere."""
+    return tree_map(lambda u, v: u if u is v else torch.where(
+        pred.view(pred.shape + (1,) * (u.dim() - pred.dim())), u, v), a, b)
 
 
 class MPCKernel:
