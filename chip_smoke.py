@@ -45,22 +45,28 @@ Phases (each raises on failure, so any failure exits non-zero):
               the reference's n500_variants (blocked, inverse, K2 with LU,
               K2.5 with the signed blocked LDL^T); these launch no K8;
   9. batched K1 against its plain version on (B, n, n) stacks at
-              BATCHED_SHAPES in float32 and float64 (phase 3's
-              tolerances per matrix; one non-SPD matrix gives NaN on its
-              own diagonal only and leaves the others' factors bit-equal;
-              two runs bit-equal; above the shared-memory limit n_max the
-              persistent kernel runs once per matrix), and CUDA-event
-              timings of the kernel, the plain version and
-              torch.linalg.cholesky_ex on the stack at BATCHED_TIMED;
+              BATCHED_SHAPES in float32 and float64, at the edges of every
+              route of pallas_chol.batched_route (registers for n <= 32,
+              a warp or a CTA per matrix in shared memory up to the limit
+              n_max, the persistent kernel with a lane axis above it):
+              one launch per stack, phase 3's tolerances per matrix, one
+              non-SPD matrix gives NaN on its own diagonal only and leaves
+              the others' factors bit-equal, two runs bit-equal, and on
+              the persistent route each lane's factor equals the 2-D call
+              on that matrix bit for bit; CUDA-event timings of the
+              kernel, the plain version and torch.linalg.cholesky_ex on
+              the stack at BATCHED_TIMED;
  10. batched  solve_batched on 512 x dense_dummy_qp(32, 16, seed=i) with
               bench.py's batched options and endgame="f64", through
-              linear_solver="pallas" (K1 one CTA per matrix: two launches
-              per factorization trial of the whole batch, W and S) and
+              linear_solver="pallas" (K1 in registers for S, a warp per
+              matrix for W: two launches per factorization trial of the
+              whole batch) and
               "dense": every lane's status, iterations and objective
               against the reference's batched512 entry, and instances/s;
               then the four n = 500 headline QPs as one batch with
-              "pallas" (W 600^2 above n_max: the persistent kernel once per
-              lane) against the n500 entries;
+              "pallas" (W 600^2 above n_max: the persistent kernel with a
+              lane axis; S 200^2 a CTA per matrix; one launch each per
+              factorization trial) against the n500 entries;
  11. layer    qp_layer on a batch of 64 random QPs (n = 32, m = 8) in
               float64, forward and backward, with "pallas" and "dense":
               gradients of all six inputs for four lanes against the
@@ -71,7 +77,8 @@ just after it.  The line before the last is a JSON object describing the
 kernels (times at the shape the path runs most: K1 at n = 600 float32, K8
 at (3840, 1792, 256) float32, the first and largest in-stripe update of
 the blocked cell's W, batched K1 at (512, 42) float32, W of the batched
-cell); the last line is {"ok": true, "device": {...}}.
+cell, and the persistent K1 with a lane axis at (4, 600) float32, W of the
+n = 500 batch); the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -94,6 +101,7 @@ DETERMINISM_SIZES = (600, 2500)
 MAIN_SHAPES = (200, 600)  # S and W of the n=500 headline problem
 TIMING_RUNS = 20
 BURST = 5  # calls per timed sample
+SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's clock: the host queues a burst meanwhile
 SOLVE_OPTIONS = dict(tol=1e-8, max_ncorr=0, factorization_dtype="float32",
                      max_refine_steps=1, print_level=40)
 # K8 (r, c, k): ragged and rectangular edges, and the blocked path's shapes
@@ -118,12 +126,16 @@ SYRK_TOL = {"float32": 1e-5, "float64": 1e-12}   # max|out - plain| / max|plain|
 # torch.addmm beats it).
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 PEAK_BYTES = 3.35e12
-# Batched K1 (B, n): the batched cell's W and S, ragged block edges, the
-# largest order one CTA holds ("max") and the first it does not, and W of
-# the n = 500 QP (above the limit).
-BATCHED_SHAPES = ((512, 42), (512, 16), (64, 1), (64, 63), (64, 64), (64, 65),
-                  (16, "max"), (16, "max+1"), (4, 600))
-BATCHED_TIMED = ((512, 42), (512, 16), (4, 600))
+# Batched K1 (B, n): the batched cell's W and S, qp_layer's (64, 32) and
+# (64, 8), the edges of the routes (8, 16, 32, 64, 32-column blocks), the
+# largest order one CTA holds ("max") and the first it does not, S and W of
+# the n = 500 QPs as one batch (S one CTA per matrix in float32, above the
+# limit in float64; W above it), W of the n = 2000 QP, and large stacks of
+# mid-size matrices, where the CTA per matrix is of 4 warps, not 8.
+BATCHED_SHAPES = ((512, 42), (512, 16), (64, 1), (64, 8), (64, 31), (64, 32),
+                  (64, 33), (64, 63), (64, 64), (64, 65), (16, "max"), (16, "max+1"),
+                  (4, 200), (4, 600), (4, 2500), (512, 100), (256, 160))
+BATCHED_TIMED = ((512, 42), (512, 16), (64, 32), (4, 200), (4, 600), (512, 100))
 BATCH = 512
 BATCHED_OPTIONS = dict(tol=1e-8, print_level=40, factorization_dtype="float32",
                        max_refine_steps=1, endgame="f64")  # + the step rule
@@ -217,14 +229,19 @@ def factor_ok(torch, L):
 
 def cuda_median_ms(torch, fn, runs=TIMING_RUNS, burst=BURST):
     """Median over `runs` samples of the device time per call, each sample
-    a burst of back-to-back calls between two CUDA events, so the host's
-    time to issue a call hides behind the previous call's run."""
+    a burst of back-to-back calls between two CUDA events.  The stream
+    first spins for about a millisecond (torch.cuda._sleep), which the host
+    uses to queue the whole burst, so a call whose device work is shorter
+    than the host's time to issue it is timed on the device and not at the
+    host's pace (a call longer than that is timed at the host's pace, as
+    the plain versions are)."""
     fn()  # warm-up
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(burst):
             fn()
@@ -291,6 +308,7 @@ def kernel_phase(torch, k1):
 def reset_counts(k1, k8):
     """Set every kernel's launch counter to 0 (just before a solve phase)."""
     k1.cholesky_lower.launches = 0
+    k1.cholesky_lower.routes.clear()
     k8.syrk_update.launches = 0
 
 
@@ -507,7 +525,7 @@ def spd_stack(torch, batch, n, dtype, seed):
 
 def batched_kernel_phase(torch, k1):
     phase("9. batched K1 against plain version")
-    main_err, timings = 0.0, {}
+    main_err, lanes_err, timings = 0.0, 0.0, {}
     for dname in ("float32", "float64"):
         dtype = getattr(torch, dname)
         n_max = k1.batched_max_n(dtype, "cuda")
@@ -515,10 +533,12 @@ def batched_kernel_phase(torch, k1):
         for batch, n in BATCHED_SHAPES:
             if not isinstance(n, int):
                 n = n_max + (n == "max+1")
+            route = k1.batched_route(n, n_max)
             A = spd_stack(torch, batch, n, dtype, seed=n)
-            before = k1.cholesky_lower.launches
+            before = dict(k1.cholesky_lower.routes)
             L = k1.cholesky_lower(A)
-            launched = k1.cholesky_lower.launches - before
+            launched = {r: c - before.get(r, 0) for r, c in k1.cholesky_lower.routes.items()
+                        if c != before.get(r, 0)}
             Lp = k1.cholesky_lower_reference(A)
             torch.cuda.synchronize()
             diff = (L - Lp).abs()
@@ -542,18 +562,26 @@ def batched_kernel_phase(torch, k1):
                         and bool(torch.equal((torch.isfinite(dp) & (dp > 0)).all(1), lanes_ok))
                         and bool(torch.equal(torch.isnan(d), torch.isnan(dp)))
                         and bool(torch.equal(Lb[lanes_ok], L[lanes_ok])))
-            expect = 1 if n <= n_max else batch
-            print(f"{dname} (B, n)=({batch}, {n}): rel_err={rel:.3e} (tol "
+            # On the persistent route each lane is the 2-D call on its matrix.
+            one = (all(bool(torch.equal(L[i], k1.cholesky_lower(A[i].contiguous())))
+                       for i in range(batch))
+                   if route == "persistent" else True)
+            print(f"{dname} (B, n)=({batch}, {n}) route={route}: rel_err={rel:.3e} (tol "
                   f"{TOL_FACTOR[dname]:g}) max_abs_err={abs_err:.3e} resid={resid:.3e} "
-                  f"launches={launched} rerun_bit_equal={same} one_bad_lane_contract={contract}")
-            check(launched == expect, f"{dname} {(batch, n)}: {launched} launches, not {expect}")
+                  f"launches={launched} rerun_bit_equal={same} one_bad_lane_contract={contract}"
+                  + (f" lanes_equal_2d={one}" if route == "persistent" else ""))
+            check(launched == {route: 1},
+                  f"{dname} {(batch, n)}: launches {launched}, not one on {route}")
             check(same, f"{dname} {(batch, n)}: two runs differ")
             check(rel <= TOL_FACTOR[dname], f"{dname} {(batch, n)}: kernel differs from plain")
             check(resid <= TOL_RESIDUAL[dname], f"{dname} {(batch, n)}: residual {resid:.3e}")
             check(upper_zero, f"{dname} {(batch, n)}: strict upper triangle not zero")
             check(contract, f"{dname} {(batch, n)}: per-lane non-SPD contract broken")
+            check(one, f"{dname} {(batch, n)}: a lane differs from the 2-D call")
             if dname == "float32" and (batch, n) in ((512, 42), (512, 16)):
                 main_err = max(main_err, abs_err)
+            if dname == "float32" and (batch, n) == (4, 600):
+                lanes_err = abs_err
             if (batch, n) in BATCHED_TIMED:
                 t = {
                     "kernel": cuda_median_ms(torch, lambda: k1.cholesky_lower(A)),
@@ -566,12 +594,13 @@ def batched_kernel_phase(torch, k1):
                 t["bound"], t["bound_by"] = chol_bound_ms(
                     batch, n, A.element_size(), dname)
                 timings[(dname, (batch, n))] = t
-                print(f"  time {dname} (B, n)=({batch}, {n}) (median of {TIMING_RUNS} "
-                      f"bursts of {BURST}, ms): "
+                print(f"  time {dname} (B, n)=({batch}, {n}) route={route} (median of "
+                      f"{TIMING_RUNS} bursts of {BURST}, ms): "
                       + ", ".join(f"{k}={v:.4f}" for k, v in t.items() if k != "bound_by")
                       + f" ({t['bound_by']}); kernel/library "
-                      f"{t['kernel'] / t['torch.linalg.cholesky_ex']:.2f}")
-    return main_err, timings
+                      f"{t['kernel'] / t['torch.linalg.cholesky_ex']:.2f}, "
+                      f"kernel/bound {t['kernel'] / t['bound']:.1f}")
+    return main_err, lanes_err, timings
 
 
 def check_lanes(stats, want, label, iter_slack=1):
@@ -605,23 +634,27 @@ def batched_path_phase(torch, mt, k1, k8, ref):
         stats = solver.solve_all()
         first = time.perf_counter() - t0
         n = k1.cholesky_lower.launches
+        routes = dict(k1.cholesky_lower.routes)
         check(k8.syrk_update.launches == 0, f"batched {backend} launched K8")
         check_lanes(stats, ref["batched512"], f"batched512 {backend}")
         t0 = time.perf_counter()
         solver.solve_batch()
         warm = time.perf_counter() - t0
         top = max(st.iter for st in stats)
-        print(f"  {backend}: K1 launches {n} (lanes up to {top} iterations; two per "
-              f"factorization trial of the batch); first solve {first:.3f} s, warm "
-              f"solve {warm:.3f} s: {BATCH / warm:.1f} instances/s")
+        print(f"  {backend}: K1 launches {n} by route {routes} (lanes up to {top} "
+              f"iterations; two per factorization trial of the batch); first solve "
+              f"{first:.3f} s, warm solve {warm:.3f} s: {BATCH / warm:.1f} instances/s")
         if backend == "pallas":
             check(n % 2 == 0 and n >= 2 * (top + 1), f"batched K1 launched {n} times")
+            check(routes == {"warp64": n // 2, "warp16": n // 2},
+                  f"batched K1 routes {routes}: W (n = 42) and S (n = 16) once per trial")
             launches = n
         else:
             check(n == 0, "the dense batched solve launched K1")
 
     # The n = 500 headline QPs as one batch: W 600^2 is above the one-CTA
-    # limit, so K1 runs the persistent kernel once per lane.
+    # limit, so K1 runs the persistent kernel with a lane axis; S 200^2
+    # one CTA per matrix.  One launch each per factorization trial.
     reset_counts(k1, k8)
     stats = mt.solve_batched(
         [mt.random_qp(500, 200, seed=s, ineq=True) for s in range(4)], device="cuda",
@@ -631,10 +664,15 @@ def batched_path_phase(torch, mt, k1, k8, ref):
     want = {key: [ref["n500"][str(s)][key] for s in range(4)]
             for key in ("status", "iter", "objective")}
     check_lanes(stats, want, "n500 x 4 pallas")
-    print(f"  K1 launches {k1.cholesky_lower.launches} "
-          f"(iterations {[st.iter for st in stats]})")
-    check(k1.cholesky_lower.launches > 0, "the n = 500 batch launched no K1")
-    return launches
+    routes = dict(k1.cholesky_lower.routes)
+    trials = routes.get("persistent", 0)
+    top = max(st.iter for st in stats)
+    print(f"  K1 launches {k1.cholesky_lower.launches} by route {routes}: {trials} "
+          f"factorization trials, two launches each (iterations {[st.iter for st in stats]})")
+    check(trials >= top + 1, f"the n = 500 batch ran {trials} trials on W")
+    check(routes == {"persistent": trials, "cta": trials},
+          f"the n = 500 batch: routes {routes}, not one W and one S launch per trial")
+    return launches, trials
 
 
 def layer_problem(seed, n=LAYER["n"], m=LAYER["m"]):
@@ -715,13 +753,14 @@ def main():
     k8_err, k8_times = syrk_phase(torch, k8)
     k8_launches, k8_fact = blocked_phase(torch, mt, k1, k8, ref)
     variants_phase(mt, k1, k8, ref)
-    kb_err, kb_times = batched_kernel_phase(torch, k1)
-    kb_launches = batched_path_phase(torch, mt, k1, k8, ref)
+    kb_err, kl_err, kb_times = batched_kernel_phase(torch, k1)
+    kb_launches, kl_launches = batched_path_phase(torch, mt, k1, k8, ref)
     layer_phase(torch, mt, k1, k8, ref)
 
     t600 = k1_times[("float32", 600)]
     t8 = k8_times[("float32", (3840, 1792, 256))]
     tb = kb_times[("float32", (512, 42))]
+    tl = kb_times[("float32", (4, 600))]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "cholesky_lower",
@@ -759,6 +798,18 @@ def main():
         "bound_ms": tb["bound"],
         "bound_by": tb["bound_by"],
         "library_ms": tb["torch.linalg.cholesky_ex"],
+    }, {
+        "name": "K1-lanes",
+        "route": "cuda",
+        "source": "madqp_tpu_torch/csrc/cholesky.cu",
+        "replaces": "madqp_tpu/ops/pallas_chol.py:158",
+        "launches": kl_launches,
+        "max_abs_err": kl_err,
+        "ms": tl["kernel"],
+        "plain_ms": tl["plain"],
+        "bound_ms": tl["bound"],
+        "bound_by": tl["bound_by"],
+        "library_ms": tl["torch.linalg.cholesky_ex"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

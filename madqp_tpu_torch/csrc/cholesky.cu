@@ -27,6 +27,14 @@
 // That is 2 ceil(n / 64) - 1 grid barriers and one launch per
 // factorization.
 //
+// The kernel has a lane axis: a stack of B matrices of one order (the
+// batched solver's W above the shared-memory limit of
+// csrc/cholesky_batched.cu) runs the same steps in the same launch.  Every
+// phase hands out (lane, tile) pairs, the lane fastest, so the B diagonal
+// factors of a step run on B different CTAs at once, and the lanes share
+// the 2 ceil(n / 64) - 1 grid barriers.  The grid is B times one matrix's
+// (capped at two CTAs per SM).  One matrix is the stack with B = 1.
+//
 // What bounds it: at n = 600 the factorization is 7.2e7 operations, a
 // microsecond of the card's rate; at n = 2500 5.2e9, 78 us.  The time goes
 // to the serial chain of n / 64 steps, each a panel tile, the tile that
@@ -257,62 +265,80 @@ __device__ void factor_diag(const T* src, T* L, T* Dinv, int n, int j0,
   __syncthreads();
 }
 
+// The factorization of `batch` matrices of order n, one after another in
+// memory (A, L: batch x n x n; Dinv: batch x NB x NB), by the whole grid
+// in one launch: one matrix, or a stack above the batched kernels'
+// shared-memory limit (csrc/cholesky_batched.cu).  Every phase enumerates
+// (lane, tile) pairs with the lane fastest, so a step's B diagonal factors
+// (trailing tile 0 of each lane) fall on CTAs 0 .. B - 1 and run at once;
+// the grid barriers are shared by all lanes, which have one n.  A lane's
+// factor does not depend on the others or on B.
 template <typename T>
 __global__ void __launch_bounds__(K1Tile<T>::THREADS, K1Tile<T>::MIN_CTAS)
-madqp_cholesky_kernel(const T* __restrict__ A, T* L, T* Dinv, int n) {
+madqp_cholesky_kernel(const T* __restrict__ A, T* L, T* Dinv, int n, int batch) {
   using TC = K1Tile<T>;
   constexpr int BM = TC::BM;
   static_assert(BM == NB, "trailing tile 0 holds the next diagonal block");
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
+  const size_t nn = (size_t)n * n;
+  constexpr size_t DD = (size_t)NB * NB;
 
-  // 0. L = tril(A) outside the first diagonal block; CTA 0 factors that.
+  // 0. L = tril(A) outside each lane's first diagonal block; CTA b
+  //    (mod the grid) factors lane b's.
   const int jb0 = n < NB ? n : NB;
-  for (int i = blockIdx.x; i < n; i += gridDim.x) {
-    const size_t row = (size_t)i * n;
+  for (long long r = blockIdx.x; r < (long long)batch * n; r += gridDim.x) {
+    const int b = (int)(r / n), i = (int)(r - (long long)b * n);
+    const size_t row = b * nn + (size_t)i * n;
     for (int j = (i < jb0 ? jb0 : 0) + threadIdx.x; j < n; j += TC::THREADS)
       L[row + j] = (j <= i) ? A[row + j] : T(0);
   }
-  if (blockIdx.x == 0) factor_diag<T>(A, L, Dinv, n, 0, jb0, smem);
+  for (int b = blockIdx.x; b < batch; b += gridDim.x)
+    factor_diag<T>(A + b * nn, L + b * nn, Dinv + b * DD, n, 0, jb0, smem);
   grid.sync();
 
   for (int j0 = 0; j0 + NB < n; j0 += NB) {
     const int j1 = j0 + NB;
     const int rem = n - j1;
     const int tiles = (rem + BM - 1) / BM;
-    T* X = L + (size_t)j1 * n + j0;  // rem x NB, row stride n
 
     // 1. X = P L_D^-T in place: X[i][j] = sum_l P[i][l] Dinv[j][l].
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int t = blockIdx.x; t < tiles * batch; t += gridDim.x) {
+      const int b = t % batch, tt = t / batch;
+      T* X = L + b * nn + (size_t)j1 * n + j0;  // rem x NB, row stride n
       typename TC::Acc acc;
       madqp::zero(acc);
-      T* Pt = X + (size_t)t * BM * n;
-      madqp::tile_product<K1Tile<T>>(acc, smem, Pt, n, rem - t * BM, Dinv, NB, NB, NB);
+      T* Pt = X + (size_t)tt * BM * n;
+      madqp::tile_product<K1Tile<T>>(acc, smem, Pt, n, rem - tt * BM, Dinv + b * DD,
+                                     NB, NB, NB);
       madqp::for_each(acc, [&](int i, int j, T v) {
-        if (t * BM + i < rem && j < NB) Pt[(size_t)i * n + j] = v;
+        if (tt * BM + i < rem && j < NB) Pt[(size_t)i * n + j] = v;
       });
     }
     grid.sync();
 
-    // 2. L[j1:, j1:] -= X X^T on and below the diagonal; then CTA 0
-    //    factors the next diagonal block, inside its tile 0.
+    // 2. L[j1:, j1:] -= X X^T on and below the diagonal; then the CTA of
+    //    a lane's tile 0 factors that lane's next diagonal block.
     const int ntri = tiles * (tiles + 1) / 2;
-    for (int t = blockIdx.x; t < ntri; t += gridDim.x) {
+    for (int t = blockIdx.x; t < ntri * batch; t += gridDim.x) {
+      const int b = t % batch, tt = t / batch;
+      T* Lb = L + b * nn;
+      const T* X = Lb + (size_t)j1 * n + j0;
       int I, J;
-      madqp::lower_tile(t, I, J);
+      madqp::lower_tile(tt, I, J);
       typename TC::Acc acc;
       madqp::zero(acc);
       madqp::tile_product<K1Tile<T>>(acc, smem, X + (size_t)I * BM * n, n, rem - I * BM,
-                             X + (size_t)J * BM * n, n, rem - J * BM, NB);
-      T* Ct = L + (size_t)(j1 + I * BM) * n + j1 + J * BM;
+                                     X + (size_t)J * BM * n, n, rem - J * BM, NB);
+      T* Ct = Lb + (size_t)(j1 + I * BM) * n + j1 + J * BM;
       madqp::for_each(acc, [&](int i, int j, T v) {
         const int gi = I * BM + i, gj = J * BM + j;
         if (gi < rem && gj <= gi) Ct[(size_t)i * n + j] -= v;
       });
-      if (t == 0) {
+      if (tt == 0) {
         __syncthreads();  // the tile's stores are visible to the whole CTA
-        factor_diag<T>(L, L, Dinv, n, j1, rem < NB ? rem : NB, smem);
+        factor_diag<T>(Lb, Lb, Dinv + b * DD, n, j1, rem < NB ? rem : NB, smem);
       }
     }
     grid.sync();
@@ -320,8 +346,8 @@ madqp_cholesky_kernel(const T* __restrict__ A, T* L, T* Dinv, int n) {
 }
 
 template <typename T>
-int cholesky_lower(const T* A, T* L, T* Dinv, int n, cudaStream_t stream) {
-  if (n <= 0) return 0;
+int cholesky_lower(const T* A, T* L, T* Dinv, int batch, int n, cudaStream_t stream) {
+  if (n <= 0 || batch <= 0) return 0;
   constexpr int BM = K1Tile<T>::BM;
   constexpr int THREADS = K1Tile<T>::THREADS;
   constexpr int smem = smem_bytes<T>();
@@ -338,12 +364,14 @@ int cholesky_lower(const T* A, T* L, T* Dinv, int n, cudaStream_t stream) {
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   if (per_sm > MAX_CTAS_PER_SM) per_sm = MAX_CTAS_PER_SM;
   // No more CTAs than the largest phase has tiles (the first trailing
-  // update): a smaller grid reaches its barriers sooner.
+  // update, over all lanes), and at least one per lane for phase 0's
+  // diagonal factors: a smaller grid reaches its barriers sooner.
   const long long t0 = (n > NB ? n - NB + BM - 1 : 0) / BM;
   long long grid = t0 * (t0 + 1) / 2;
   if (grid < 1) grid = 1;
+  grid *= batch;
   if (grid > (long long)per_sm * sms) grid = (long long)per_sm * sms;
-  void* args[] = {(void*)&A, (void*)&L, (void*)&Dinv, (void*)&n};
+  void* args[] = {(void*)&A, (void*)&L, (void*)&Dinv, (void*)&n, (void*)&batch};
   err = cudaLaunchCooperativeKernel((void*)kernel, dim3((unsigned)grid),
                                     dim3(THREADS), args, smem, stream);
   if (err != cudaSuccess) return (int)err;
@@ -352,20 +380,20 @@ int cholesky_lower(const T* A, T* L, T* Dinv, int n, cudaStream_t stream) {
 
 }  // namespace
 
-// Dinv: NB x NB scratch of the same dtype (madqp_cholesky_block_size()).
-extern "C" int madqp_cholesky_lower_f32(const void* A, void* L, void* Dinv,
+// A, L: contiguous (batch, n, n) stacks (batch = 1 for one matrix); Dinv:
+// (batch, NB, NB) scratch (NB = madqp_cholesky_block_size()), all of the
+// same dtype.  One cooperative launch for the whole stack.
+extern "C" int madqp_cholesky_lower_f32(const void* A, void* L, void* Dinv, int batch,
                                         int n, void* stream) {
-  return cholesky_lower<float>(static_cast<const float*>(A),
-                               static_cast<float*>(L),
-                               static_cast<float*>(Dinv), n,
+  return cholesky_lower<float>(static_cast<const float*>(A), static_cast<float*>(L),
+                               static_cast<float*>(Dinv), batch, n,
                                static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int madqp_cholesky_lower_f64(const void* A, void* L, void* Dinv,
+extern "C" int madqp_cholesky_lower_f64(const void* A, void* L, void* Dinv, int batch,
                                         int n, void* stream) {
-  return cholesky_lower<double>(static_cast<const double*>(A),
-                                static_cast<double*>(L),
-                                static_cast<double*>(Dinv), n,
+  return cholesky_lower<double>(static_cast<const double*>(A), static_cast<double*>(L),
+                                static_cast<double*>(Dinv), batch, n,
                                 static_cast<cudaStream_t>(stream));
 }
 

@@ -8,19 +8,26 @@ per matrix (under `jax.vmap` one per matrix of the batch).  On Hopper:
 * one matrix: the matrix stays in device memory and the right-looking
   blocked algorithm runs over 64-column blocks in one persistent
   cooperative launch (`csrc/cholesky.cu`);
-* a stack (B, n, n): one CTA per matrix, the matrix in shared memory
-  (`csrc/cholesky_batched.cu`), for every n whose square fits a CTA's
-  shared memory (`batched_max_n`, read from the device); a larger stack
-  runs the persistent kernel once per matrix.
+* a stack (B, n, n): one launch, whatever n (`batched_route`): for
+  n <= 32 each matrix in the registers of a group of 8, 16 or 32 lanes;
+  for 32 < n <= 64 one warp per matrix, and above that one CTA per
+  matrix, the matrix in shared memory and factored in 32-column blocks
+  (`csrc/cholesky_batched.cu`), up to the largest n whose square fits a
+  CTA's shared memory (`batched_max_n`, read from the device); above it
+  the persistent kernel of one matrix, whose lane axis takes all lanes
+  in one cooperative launch (`csrc/cholesky.cu`).
 
 * `cholesky_lower(A)` is the wrapper, for (n, n) or (B, n, n).  A CUDA
   tensor always launches a hand-written kernel or raises; a CPU tensor
   goes to the plain version.  `cholesky_lower.launches` counts every
-  kernel launch, batched or per matrix.
+  kernel launch (one per call), and `cholesky_lower.routes` counts them
+  by route (`"single"` or a `batched_route` name).
 * `cholesky_lower_reference(A)` is the plain version: the same blocking,
   the same per-column sweep of the diagonal block (which also inverts it)
   and the same panel solve by the inverse, in PyTorch ops, on any device,
-  for one matrix or a stack.
+  for one matrix or a stack.  The kernels for small stacks compute the
+  same function in another rounding order (32-column blocks, the panel
+  by substitution), which the tests' tolerances absorb.
 * `select_cholesky(backend)` returns the factor function the KKT layer
   uses: `"pallas"` -> `cholesky_lower`; anything else -> `dense_cholesky`
   (the library factorization with the same NaN contract).
@@ -44,22 +51,24 @@ BLOCK = 64  # block-column width; must equal NB in csrc/cholesky.cu
 
 SOURCE = _build.CSRC_DIR / "cholesky.cu"
 SOURCE_BATCHED = _build.CSRC_DIR / "cholesky_batched.cu"
-# (A, L, Dinv, n, stream) -> cudaError_t; Dinv is BLOCK x BLOCK scratch
+# (A, L, Dinv, batch, n, stream) -> cudaError_t; Dinv is (batch, BLOCK, BLOCK)
 _SIGNATURE = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-               ctypes.c_void_p], ctypes.c_int)
+               ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
 _SIGNATURES = {
     "madqp_cholesky_lower_f32": _SIGNATURE,
     "madqp_cholesky_lower_f64": _SIGNATURE,
     "madqp_cholesky_block_size": ([], ctypes.c_int),
 }
-# (A, L, batch, n, stream) -> cudaError_t
+# (A, L, batch, n, tier, stream) -> cudaError_t
 _BATCHED_SIGNATURE = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p], ctypes.c_int)
+                       ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
 _BATCHED_SIGNATURES = {
     "madqp_cholesky_lower_batched_f32": _BATCHED_SIGNATURE,
     "madqp_cholesky_lower_batched_f64": _BATCHED_SIGNATURE,
     "madqp_cholesky_batched_max_n": ([ctypes.c_int], ctypes.c_int),
 }
+# batched_route name -> the tier code of madqp_cholesky_lower_batched_*
+_TIERS = {"warp8": 8, "warp16": 16, "warp32": 32, "warp64": 64, "cta": 0}
 
 
 def _check_matrix(A: torch.Tensor) -> int:
@@ -155,25 +164,57 @@ def batched_max_n(dtype: torch.dtype, device) -> int:
     return _max_n[key]
 
 
-def _launch_single(lib, A: torch.Tensor, out: torch.Tensor, scratch) -> None:
+def batched_route(n: int, n_max: int) -> str:
+    """The kernel that factors a stack of order-n matrices, where n_max is
+    `batched_max_n` for its dtype on its card.  Every route is one launch
+    for the whole stack:
+
+    * "warp8", "warp16", "warp32" (n <= 8, 16, 32): each matrix in the
+      registers of a group of that many lanes, 32 / N matrices per warp;
+    * "warp64" (n <= 64): one warp per matrix, in shared memory;
+    * "cta" (n <= n_max): one CTA per matrix, in shared memory (the C
+      side picks 8 or 4 warps, whichever takes fewer waves);
+    * "persistent" (n > n_max): the persistent kernel, its lane axis
+      over the stack.
+    """
+    if n > n_max:
+        return "persistent"
+    for width in (8, 16, 32, 64):
+        if n <= width:
+            return f"warp{width}"
+    return "cta"
+
+
+def _count(route: str) -> None:
+    cholesky_lower.launches += 1
+    cholesky_lower.routes[route] = cholesky_lower.routes.get(route, 0) + 1
+
+
+def _launch_persistent(A: torch.Tensor, out: torch.Tensor) -> None:
+    """The persistent kernel on one matrix (2-D, a stack of one) or on
+    every lane of a stack (3-D), one cooperative launch either way."""
+    lib = _library()
     fn = (lib.madqp_cholesky_lower_f32 if A.dtype == torch.float32
           else lib.madqp_cholesky_lower_f64)
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = fn(A.data_ptr(), out.data_ptr(), scratch.data_ptr(), A.shape[-1], stream)
+    batch = 1 if A.dim() == 2 else A.shape[0]
+    # per call: two stacks in flight on two streams never share it
+    scratch = torch.empty((batch, BLOCK, BLOCK), dtype=A.dtype, device=A.device)
+    err = fn(A.data_ptr(), out.data_ptr(), scratch.data_ptr(), batch, A.shape[-1],
+             torch.cuda.current_stream(A.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"K1 Cholesky kernel launch failed: CUDA error {err}")
-    cholesky_lower.launches += 1
+    _count("single" if A.dim() == 2 else "persistent")
 
 
-def _launch_batched(A: torch.Tensor, out: torch.Tensor) -> None:
+def _launch_batched(A: torch.Tensor, out: torch.Tensor, route: str) -> None:
     lib = _batched_library()
     fn = (lib.madqp_cholesky_lower_batched_f32 if A.dtype == torch.float32
           else lib.madqp_cholesky_lower_batched_f64)
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = fn(A.data_ptr(), out.data_ptr(), A.shape[0], A.shape[-1], stream)
+    err = fn(A.data_ptr(), out.data_ptr(), A.shape[0], A.shape[-1], _TIERS[route], stream)
     if err != 0:
-        raise RuntimeError(f"batched K1 kernel launch failed: CUDA error {err}")
-    cholesky_lower.launches += 1
+        raise RuntimeError(f"batched K1 kernel ({route}) launch failed: CUDA error {err}")
+    _count(route)
 
 
 def cholesky_lower(A: torch.Tensor) -> torch.Tensor:
@@ -182,9 +223,9 @@ def cholesky_lower(A: torch.Tensor) -> torch.Tensor:
 
     CUDA tensor (contiguous): launches a hand-written kernel on the
     current stream (raises if it cannot be built or launched): the
-    persistent kernel for one matrix; for a stack the one-CTA-per-matrix
-    kernel when n <= batched_max_n, else the persistent kernel once per
-    matrix.  CPU tensor: the plain version.  Any other device raises."""
+    persistent kernel for one matrix; for a stack the kernel
+    `batched_route` names, one launch for the whole stack.  CPU tensor:
+    the plain version.  Any other device raises."""
     n = _check_matrix(A)
     if A.device.type == "cpu":
         return cholesky_lower_reference(A)
@@ -193,21 +234,22 @@ def cholesky_lower(A: torch.Tensor) -> torch.Tensor:
     if not A.is_contiguous():
         raise ValueError("cholesky_lower needs a contiguous matrix")
     out = torch.empty_like(A)
+    if A.numel() == 0:
+        return out
     with torch.cuda.device(A.device):
-        if A.dim() == 3 and n <= batched_max_n(A.dtype, A.device):
-            if A.shape[0] and n:
-                _launch_batched(A, out)
-            return out
-        lib = _library()
-        scratch = torch.empty((BLOCK, BLOCK), dtype=A.dtype, device=A.device)
         if A.dim() == 2:
-            _launch_single(lib, A, out, scratch)
-        for i in range(A.shape[0] if A.dim() == 3 else 0):
-            _launch_single(lib, A[i], out[i], scratch)
+            _launch_persistent(A, out)
+            return out
+        route = batched_route(n, batched_max_n(A.dtype, A.device))
+        if route == "persistent":
+            _launch_persistent(A, out)
+        else:
+            _launch_batched(A, out, route)
     return out
 
 
 cholesky_lower.launches = 0
+cholesky_lower.routes = {}
 
 
 # ---------------------------------------------------------------------------

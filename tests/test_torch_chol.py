@@ -125,7 +125,9 @@ def spd_stack(batch, n, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("batch,n", [(3, 37), (4, 64), (2, 129), (5, 1)])
+@pytest.mark.parametrize("batch,n", [(3, 37), (4, 64), (2, 129), (5, 1),
+                                     # the edges of the batched routes
+                                     (7, 16), (5, 31), (5, 32), (5, 33), (3, 42)])
 def test_plain_stack_matches_vmapped_pallas(batch, n, dtype):
     """The plain version on a (B, n, n) stack against the Pallas kernel
     under jax.vmap (one program per matrix, as the batched solver runs it),
@@ -164,3 +166,45 @@ def test_wrapper_on_a_stack_uses_plain_version_on_cpu():
     L = K1.cholesky_lower(A)
     assert K1.cholesky_lower.launches == before
     assert torch.equal(L, K1.cholesky_lower_reference(A))
+
+
+# The H100's shared-memory limits of the batched kernels (float32, float64).
+H100_N_MAX = {"float32": 235, "float64": 163}
+
+
+@pytest.mark.parametrize("dname", ["float32", "float64"])
+@pytest.mark.parametrize("n,want", [
+    (1, "warp8"), (8, "warp8"), (9, "warp16"), (16, "warp16"), (17, "warp32"),
+    (31, "warp32"), (32, "warp32"), (33, "warp64"), (63, "warp64"), (64, "warp64"),
+    (65, "cta"), ("max", "cta"), ("max+1", "persistent"), (600, "persistent"),
+    (2500, "persistent"),
+])
+def test_batched_route_at_every_edge(n, want, dname):
+    """Every stack is one launch: the register tiers up to 32, a warp per
+    matrix up to 64, a CTA per matrix up to n_max, the persistent kernel
+    with a lane axis above it; each route names one kernel of the C side."""
+    n_max = H100_N_MAX[dname]
+    if not isinstance(n, int):
+        n = n_max + (n == "max+1")
+    route = K1.batched_route(n, n_max)
+    assert route == want
+    assert route == "persistent" or route in K1._TIERS
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("batch,n", [(5, 8), (5, 33)])
+def test_stack_nan_contract_matches_vmapped_pallas(batch, n, dtype):
+    """At the route edges: one non-SPD matrix gives the vmapped Pallas
+    kernel's per-lane verdict, NaN on its own diagonal only, and the other
+    factors match Pallas to the stack tolerances."""
+    import jax
+
+    A = spd_stack(batch, n, dtype, seed=n)
+    A[1] = not_spd(n, dtype, seed=7)
+    want = np.asarray(jax.vmap(lambda a: pallas_cholesky(a, interpret=True))(A))
+    got = K1.cholesky_lower_reference(torch.from_numpy(A)).numpy()
+    for i in range(batch):
+        assert diag_ok(got[i]) is diag_ok(want[i]) is (i != 1)
+    assert np.isnan(got[1, -1, -1])
+    good = [i for i in range(batch) if i != 1]
+    np.testing.assert_allclose(got[good], want[good], rtol=TOL[dtype], atol=TOL[dtype])

@@ -95,21 +95,31 @@ def batched_order(n, dtype):
     return n_max + (n == "max+1")
 
 
+# The edges of every route of batched_route: registers (n <= 8, 16, 32), a
+# warp per matrix (n <= 64), a CTA per matrix in 32-column blocks (up to
+# n_max), and the persistent kernel with a lane axis above n_max.
+BATCHED_EDGES = [(512, 42), (512, 16), (64, 1), (64, 8), (64, 9), (64, 16), (64, 17),
+                 (64, 31), (64, 32), (64, 33), (64, 63), (64, 64), (64, 65), (8, 97),
+                 (16, "max"), (16, "max+1"), (4, 200), (3, 600), (2, 2500),
+                 # a CTA of 4 warps per matrix (fewer waves than 8 warps)
+                 (512, 100), (256, 160)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-@pytest.mark.parametrize("batch,n", [(512, 42), (512, 16), (64, 1), (64, 63),
-                                     (64, 64), (64, 65), (16, "max"),
-                                     (16, "max+1"), (4, 600)])
+@pytest.mark.parametrize("batch,n", BATCHED_EDGES)
 def test_batched_kernel_matches_plain(cuda, batch, n, dtype, tol):
     """Each factor of a stack within the smoke's tolerances of the plain
     version (relative to its max|L|), zero above the diagonal; one launch
-    for a stack the one-CTA kernel holds, one per matrix above that."""
+    for the whole stack, on the route batched_route names; two runs
+    bit-equal."""
     n = batched_order(n, dtype)
+    route = K1.batched_route(n, K1.batched_max_n(dtype, cuda))
     A = torch.as_tensor(spd_stack(batch, n, seed=n), dtype=dtype, device=cuda)
-    before = K1.cholesky_lower.launches
+    before = K1.cholesky_lower.launches, K1.cholesky_lower.routes.get(route, 0)
     L = K1.cholesky_lower(A)
     torch.cuda.synchronize()
-    one_cta = n <= K1.batched_max_n(dtype, cuda)
-    assert K1.cholesky_lower.launches == before + (1 if one_cta else batch)
+    assert K1.cholesky_lower.launches == before[0] + 1
+    assert K1.cholesky_lower.routes[route] == before[1] + 1
     Lp = K1.cholesky_lower_reference(A)
     err = (L - Lp).abs().amax(dim=(1, 2))
     assert bool((err <= tol * Lp.abs().amax(dim=(1, 2))).all())
@@ -118,7 +128,8 @@ def test_batched_kernel_matches_plain(cuda, batch, n, dtype, tol):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("batch,n", [(8, 42), (8, 16), (4, 65), (3, "max+1")])
+@pytest.mark.parametrize("batch,n", [(8, 42), (8, 16), (9, 8), (5, 31), (5, 33),
+                                     (4, 65), (300, 100), (3, "max+1"), (3, 600)])
 def test_batched_kernel_nan_contract_per_lane(cuda, batch, n, dtype):
     """One non-SPD matrix in the stack: NaN on its own diagonal at the
     plain version's places; every other factor equals its factor alone."""
@@ -133,6 +144,33 @@ def test_batched_kernel_nan_contract_per_lane(cuda, batch, n, dtype):
                            torch.isnan(torch.diagonal(Lp[i])))
     good = [i for i in range(batch) if i != bad]
     assert torch.equal(L[good], K1.cholesky_lower(A[good].contiguous()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [65, 600, 2500])
+def test_lanes_kernel_one_lane_is_the_single_launch(cuda, n, dtype):
+    """The persistent kernel on a stack gives each lane the 2-D call's
+    factor of that matrix bit for bit, for a stack of one and of three
+    (n_max is below 600; at n = 65 the stack is launched through the
+    wrapper's helper directly)."""
+    A = torch.as_tensor(spd_stack(3, n, seed=n), dtype=dtype, device=cuda)
+    for batch in (1, 3):
+        stack = torch.empty((batch, n, n), dtype=dtype, device=cuda)
+        with torch.cuda.device(cuda):
+            K1._launch_persistent(A[:batch].contiguous(), stack)
+        for i in range(batch):
+            assert torch.equal(stack[i], K1.cholesky_lower(A[i].contiguous())), (batch, i)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_kernel_ignores_the_upper_triangle(cuda, dtype):
+    """NaN planted above the diagonal of every matrix changes no factor,
+    on every route."""
+    for batch, n in [(6, 8), (6, 16), (6, 31), (6, 32), (6, 42), (4, 97), (2, 300)]:
+        A = torch.as_tensor(spd_stack(batch, n, seed=2), dtype=dtype, device=cuda)
+        U = A.clone()
+        U[:, torch.triu(torch.ones(n, n, dtype=torch.bool, device=cuda), 1)] = float("nan")
+        assert torch.equal(K1.cholesky_lower(U), K1.cholesky_lower(A)), (batch, n)
 
 
 def test_batched_kernel_rejects_non_contiguous(cuda):

@@ -12,8 +12,10 @@ For the n = 500 headline QP (`random_qp(500, 200)`, with
 `autosolve`, which buckets it to W 4096^2 / S 1024^2 and takes the blocked
 backend), all with the headline options, and the batched cell
 (`solve_batched` of 512 x `dense_dummy_qp(32, 16)`, `bench.py`'s options
-with `endgame="f64"`, with `"pallas"` (K1 one CTA per matrix) and
-`"dense"`; set-up once, then `solve_batch`): times unprofiled solves on the
+with `endgame="f64"`, with `"pallas"` (K1's batched kernels) and
+`"dense"`; set-up once, then `solve_batch`), and the four n = 500 QPs as
+one batch with `"pallas"` (W above the shared-memory limit: the persistent
+K1 with a lane axis): times unprofiled solves on the
 host clock after one warm-up solve, then profiles one solve with
 torch.profiler and sums kernel time by layer (K1, K8, library Cholesky,
 triangular solves, matmul, reductions, elementwise).  The idle share is 1 - (sum of kernel times) / (wall of the
@@ -33,12 +35,17 @@ import time
 from pathlib import Path
 
 # Kernel-name fragments -> layer, first match wins.  The port's kernels
-# come first: K1 is one launch per factorization (madqp_cholesky_kernel),
-# K8 one per update (madqp_syrk_kernel); neither name holds a fragment of
-# the library layers below, its float64 DMMA tiles included.
+# come first: K1 is one launch per factorization or per stack (the
+# batched kernels, by route: registers, shared memory; and
+# madqp_cholesky_kernel, the persistent kernel, for one matrix or, with
+# its lane axis, a stack above n_max), K8 one per update
+# (madqp_syrk_kernel); no name holds a fragment of the library layers
+# below, their float64 DMMA tiles included.
 LAYERS = (
-    ("K1 batched cholesky (one CTA per matrix)", ("madqp_cholesky_batched",)),
-    ("K1 cholesky (factorize)", ("madqp_cholesky",)),
+    ("K1 batched, registers (n <= 32)", ("madqp_cholesky_batched_regs",)),
+    ("K1 batched, shared memory (a warp or a CTA per matrix)",
+     ("madqp_cholesky_batched_shared",)),
+    ("K1 persistent (one matrix, or a stack above n_max)", ("madqp_cholesky",)),
     ("K8 syrk_update (panel Cholesky trailing update)", ("madqp_syrk",)),
     ("library cholesky (factorize)", ("potrf", "getrf_wo_pivot", "trf4_set_info")),
     ("triangular solves (cholesky_solve)", ("trsv", "trsm")),
@@ -123,6 +130,35 @@ def profile_cell(torch, mt, shape, seeds, entry="solve", **options):
     }
 
 
+def profile_batch_n500(torch, mt, reps=3):
+    """The n = 500 QPs of seeds 0-3 as one batch through `solve_batched`
+    with `"pallas"` and the headline options: a warm-up, `reps` unprofiled
+    calls, then one profiled."""
+    qps = [mt.random_qp(500, 200, seed=s, ineq=True) for s in range(4)]
+
+    def run():
+        stats = mt.solve_batched(qps, device="cuda", step_rule=mt.AdaptiveStep(0.995),
+                                 regularization=mt.FixedRegularization(1e-8, -1e-8),
+                                 linear_solver="pallas", **HEADLINE)
+        torch.cuda.synchronize()
+        if not all(st.success for st in stats):
+            raise RuntimeError("n = 500 batch: a lane unsolved")
+        return stats
+
+    run()  # warm-up
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    stats, wall, busy_us, launches = device_profile(torch, run)
+    return {
+        "unprofiled": {"wall_s": walls},
+        "profiled": summary(wall, busy_us, launches, lanes=len(stats),
+                            iters=[st.iter for st in stats]),
+    }
+
+
 def profile_batched(torch, mt, backend, reps=3):
     """`BatchedMPCSolver` of BATCH x dense_dummy_qp(32, 16, seed=i) with
     `linear_solver=backend`: set-up timed once, a warm-up `solve_batch`,
@@ -165,6 +201,7 @@ CELLS = {
         torch, mt, (2000, 1000), (0, 0, 0), entry="autosolve"),
     "batched512_pallas": lambda torch, mt: profile_batched(torch, mt, "pallas"),
     "batched512_dense": lambda torch, mt: profile_batched(torch, mt, "dense"),
+    "n500x4_batch_pallas": lambda torch, mt: profile_batch_n500(torch, mt),
 }
 
 
