@@ -12,12 +12,14 @@ Phases (each raises on failure, so any failure exits non-zero):
               each source's smem_bytes) and count the FP64 tensor-core
               instructions (DMMA) in each library's SASS, which must be
               there in the two that hold the tile product (float64);
-  3. K1       K1 against its plain PyTorch version in float32 and float64
-              at n in SIZES (factor error relative to max|L| <= 1e-5 /
-              1e-12, reconstruction residual, the NaN contract on a non-SPD
-              input, two runs bit-equal), and CUDA-event timings of the
-              kernel, the plain version and torch.linalg.cholesky at
-              TIMED_SIZES;
+  3. K1       K1 against its plain PyTorch versions in float32 and float64
+              at n in SIZES: the version that follows its route's kernel
+              (pallas_chol.ROUTE_REFERENCE, factor error relative to max|L|
+              within pallas_chol.ROUTE_TOL) and the 64-column one (within 1e-5 /
+              1e-12), reconstruction residual, the NaN contract on a
+              non-SPD input, two runs bit-equal; CUDA-event timings of the
+              kernel, its route's plain version and torch.linalg.cholesky
+              at TIMED_SIZES;
   4. main     madqp_tpu_torch.solve on random_qp(500, 200, seed) for seeds
               0-3 with the headline benchmark's options and
               linear_solver="pallas": status, iteration count and objective
@@ -48,14 +50,17 @@ Phases (each raises on failure, so any failure exits non-zero):
               BATCHED_SHAPES in float32 and float64, at the edges of every
               route of pallas_chol.batched_route (registers for n <= 32,
               a warp or a CTA per matrix in shared memory up to the limit
-              n_max, the persistent kernel with a lane axis above it):
+              n_max, the persistent kernel with a lane axis above it) and
+              at the two-stage cell's and the weak-scaling shape's stacks
+              and at public two-stage sets' own second-stage widths
+              (PUBLISHED_SHAPES: the lane-axis kernel at 256-1024 lanes):
               one launch per stack, phase 3's tolerances per matrix, one
               non-SPD matrix gives NaN on its own diagonal only and leaves
               the others' factors bit-equal, two runs bit-equal, and on
               the persistent route each lane's factor equals the 2-D call
               on that matrix bit for bit; CUDA-event timings of the
-              kernel, the plain version and torch.linalg.cholesky_ex on
-              the stack at BATCHED_TIMED;
+              kernel, its route's plain version and
+              torch.linalg.cholesky_ex on the stack at BATCHED_TIMED;
  10. batched  solve_batched on 512 x dense_dummy_qp(32, 16, seed=i) with
               bench.py's batched options and endgame="f64", through
               linear_solver="pallas" (K1 in registers for S, a warp per
@@ -70,7 +75,14 @@ Phases (each raises on failure, so any failure exits non-zero):
  11. layer    qp_layer on a batch of 64 random QPs (n = 32, m = 8) in
               float64, forward and backward, with "pallas" and "dense":
               gradients of all six inputs for four lanes against the
-              reference's qp_layer64 entry.
+              reference's qp_layer64 entry;
+ 12. two-stage solve_two_stage on random_two_stage(n0=128, ns=96, ms=48,
+              m0=16, N=1024) (98,432 variables) with "pallas" and "dense"
+              in float64 and "pallas" with the float32 factorization and
+              one refinement step: status, iterations, objective, x0 and
+              the norms of x and y against the reference's two_stage_1024
+              entry; under "pallas" each factorization trial is one `cta`
+              launch (U), one `warp64` (S) and two `single` (C00, S0).
 
 Every launch counter is set to 0 just before each solve phase and read
 just after it.  The line before the last is a JSON object describing the
@@ -78,7 +90,8 @@ kernels (times at the shape the path runs most: K1 at n = 600 float32, K8
 at (3840, 1792, 256) float32, the first and largest in-stripe update of
 the blocked cell's W, batched K1 at (512, 42) float32, W of the batched
 cell, and the persistent K1 with a lane axis at (4, 600) float32, W of the
-n = 500 batch); the last line is {"ok": true, "device": {...}}.
+n = 500 batch; the launches of K1 and of K1-batched include phase 12's);
+the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -93,9 +106,12 @@ from pathlib import Path
 
 import numpy as np
 
-TOL_FACTOR = {"float32": 1e-5, "float64": 1e-12}    # max|L - L_plain| / max|L_plain|
+# max|L - L_plain| / max|L_plain| against the 64-column plain version
+# (cholesky_lower_reference, what cholesky_lower runs on the CPU)
+TOL_FACTOR = {"float32": 1e-5, "float64": 1e-12}
 TOL_RESIDUAL = {"float32": 1e-4, "float64": 1e-12}  # ||L L^T - A||_F / ||A||_F
-SIZES = (1, 37, 63, 64, 65, 129, 200, 600, 1000, 2500)
+# 16 and 128: S0 and C00 of the two-stage cell (phase 12)
+SIZES = (1, 16, 37, 63, 64, 65, 128, 129, 200, 600, 1000, 2500)
 TIMED_SIZES = (200, 600, 1000, 2500)
 DETERMINISM_SIZES = (600, 2500)
 MAIN_SHAPES = (200, 600)  # S and W of the n=500 headline problem
@@ -126,6 +142,12 @@ SYRK_TOL = {"float32": 1e-5, "float64": 1e-12}   # max|out - plain| / max|plain|
 # torch.addmm beats it).
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 PEAK_BYTES = 3.35e12
+# Scenario stacks at public two-stage sets' own second-stage widths (U:
+# columns, S: rows): SSN's 706 and 175 and 20-term's 124 rows with 1024
+# scenarios, storm's 528 rows with 1024 and its 1259 columns with 256 (the
+# phase holds about ten copies of a stack).  All but 124 are above n_max
+# in float64, so they run the lane-axis kernel.
+PUBLISHED_SHAPES = ((1024, 706), (1024, 175), (1024, 124), (256, 1259), (1024, 528))
 # Batched K1 (B, n): the batched cell's W and S, qp_layer's (64, 32) and
 # (64, 8), the edges of the routes (8, 16, 32, 64, 32-column blocks), the
 # largest order one CTA holds ("max") and the first it does not, S and W of
@@ -134,8 +156,12 @@ PEAK_BYTES = 3.35e12
 # mid-size matrices, where the CTA per matrix is of 4 warps, not 8.
 BATCHED_SHAPES = ((512, 42), (512, 16), (64, 1), (64, 8), (64, 31), (64, 32),
                   (64, 33), (64, 63), (64, 64), (64, 65), (16, "max"), (16, "max+1"),
-                  (4, 200), (4, 600), (4, 2500), (512, 100), (256, 160))
-BATCHED_TIMED = ((512, 42), (512, 16), (64, 32), (4, 200), (4, 600), (512, 100))
+                  (4, 200), (4, 600), (4, 2500), (512, 100), (256, 160),
+                  # the two-stage cell's U and S stacks (phase 12) and the
+                  # weak-scaling shape's (benchmarks/exp_scaling.py:77)
+                  (1024, 96), (1024, 48), (8, 20), (8, 12), *PUBLISHED_SHAPES)
+BATCHED_TIMED = ((512, 42), (512, 16), (64, 32), (4, 200), (4, 600), (512, 100),
+                 (1024, 96), (1024, 48), (8, 20), (8, 12), *PUBLISHED_SHAPES)
 BATCH = 512
 BATCHED_OPTIONS = dict(tol=1e-8, print_level=40, factorization_dtype="float32",
                        max_refine_steps=1, endgame="f64")  # + the step rule
@@ -251,36 +277,63 @@ def cuda_median_ms(torch, fn, runs=TIMING_RUNS, burst=BURST):
     return statistics.median(times)
 
 
+def plain_errors(torch, k1, A, L, route, worst):
+    """L (the kernel's factor of A, one matrix or a stack) against the
+    plain version of its route and against the 64-column one: returns the
+    largest max|L - P| of the route's and the largest max|L - P| / max|P|
+    per matrix of each, and keeps the largest of each relative error by
+    (route, dtype) in `worst`."""
+    Lp = k1.ROUTE_REFERENCE[route](A)
+    L64 = k1.cholesky_lower_reference(A)
+    torch.cuda.synchronize()
+    rels = []
+    for P in (Lp, L64):
+        diff = (L - P).abs()
+        rels.append(float((diff.amax(dim=(-2, -1)) / P.abs().amax(dim=(-2, -1))).max()))
+    key = (route, str(A.dtype).split(".")[-1])
+    worst[key] = [max(w, r) for w, r in zip(worst.get(key, (0.0, 0.0)), rels)]
+    return float((L - Lp).abs().max()), rels[0], rels[1]
+
+
+def print_worst(k1, worst):
+    for (route, dname), (rel, rel64) in sorted(worst.items()):
+        print(f"  worst {dname} route={route}: rel_err={rel:.3e} against its own plain "
+              f"version (tol {k1.ROUTE_TOL[route][dname]:g}), {rel64:.3e} against the "
+              f"64-column one (tol {TOL_FACTOR[dname]:g})")
+
+
 def kernel_phase(torch, k1):
     phase("3. K1 against plain version")
-    main_err, timings = 0.0, {}
+    main_err, timings, worst = 0.0, {}, {}
     for dname in ("float32", "float64"):
         dtype = getattr(torch, dname)
         for n in SIZES:
             A = spd_matrix(torch, n, dtype, seed=n)
             L = k1.cholesky_lower(A)
-            Lp = k1.cholesky_lower_reference(A)
-            torch.cuda.synchronize()
-            abs_err = float((L - Lp).abs().max())
-            rel = abs_err / float(Lp.abs().max())
+            abs_err, rel, rel64 = plain_errors(torch, k1, A, L, "single", worst)
             A64, L64 = A.double(), L.double()
             resid = float(torch.linalg.norm(L64 @ L64.T - A64) / torch.linalg.norm(A64))
             upper_zero = bool((torch.triu(L, 1) == 0).all())
             # Non-SPD input: a negative diagonal entry midway.
             B = A.clone()
             B[n // 2, n // 2] = -1.0
-            Lb, Lbp = k1.cholesky_lower(B), k1.cholesky_lower_reference(B)
-            nan_same = bool((torch.isnan(torch.diagonal(Lb))
-                             == torch.isnan(torch.diagonal(Lbp))).all())
-            bad_ok = (factor_ok(torch, Lb), factor_ok(torch, Lbp))
+            Lb = k1.cholesky_lower(B)
+            nan_same = all(bool(torch.equal(torch.isnan(torch.diagonal(Lb)),
+                                            torch.isnan(torch.diagonal(plain(B)))))
+                           for plain in (k1.ROUTE_REFERENCE["single"],
+                                         k1.cholesky_lower_reference))
+            bad_ok = (factor_ok(torch, Lb), factor_ok(torch, k1.ROUTE_REFERENCE["single"](B)))
             same = (bool(torch.equal(L, k1.cholesky_lower(A)))
                     if n in DETERMINISM_SIZES else True)
-            print(f"{dname} n={n}: rel_err={rel:.3e} (tol {TOL_FACTOR[dname]:g}) "
+            print(f"{dname} n={n}: rel_err={rel:.3e} (tol {k1.ROUTE_TOL['single'][dname]:g}) "
+                  f"rel_err_64={rel64:.3e} (tol {TOL_FACTOR[dname]:g}) "
                   f"max_abs_err={abs_err:.3e} resid={resid:.3e} "
                   f"non-SPD factor_ok kernel/plain={bad_ok} nan_diag_same={nan_same}"
                   + (f" rerun_bit_equal={same}" if n in DETERMINISM_SIZES else ""))
             check(same, f"{dname} n={n}: two runs differ")
-            check(rel <= TOL_FACTOR[dname], f"{dname} n={n}: kernel differs from plain")
+            check(rel <= k1.ROUTE_TOL["single"][dname],
+                  f"{dname} n={n}: kernel differs from its route's plain version")
+            check(rel64 <= TOL_FACTOR[dname], f"{dname} n={n}: kernel differs from plain")
             check(resid <= TOL_RESIDUAL[dname], f"{dname} n={n}: residual {resid:.3e}")
             check(upper_zero, f"{dname} n={n}: strict upper triangle not zero")
             check(bad_ok == (False, False) and nan_same,
@@ -290,9 +343,10 @@ def kernel_phase(torch, k1):
             if n in TIMED_SIZES:
                 t = {
                     "kernel": cuda_median_ms(torch, lambda: k1.cholesky_lower(A)),
-                    # a Python loop over columns, ~0.1-0.4 s a call: fewer samples
+                    # the route's plain version, a Python loop over columns:
+                    # fewer samples
                     "plain": cuda_median_ms(
-                        torch, lambda: k1.cholesky_lower_reference(A), runs=5, burst=1),
+                        torch, lambda: k1.ROUTE_REFERENCE["single"](A), runs=5, burst=1),
                     "torch.linalg.cholesky": cuda_median_ms(
                         torch, lambda: torch.linalg.cholesky(A)),
                 }
@@ -302,6 +356,7 @@ def kernel_phase(torch, k1):
                       + ", ".join(f"{k}={v:.4f}" for k, v in t.items()
                                   if k != "bound_by") + f" ({t['bound_by']}); "
                       f"kernel/library {t['kernel'] / t['torch.linalg.cholesky']:.2f}")
+    print_worst(k1, worst)
     return main_err, timings
 
 
@@ -517,15 +572,24 @@ def variants_phase(mt, k1, k8, ref):
 
 
 def spd_stack(torch, batch, n, dtype, seed):
-    rng = np.random.default_rng(seed)
-    P = rng.standard_normal((batch, n, n))
-    A = P @ P.transpose(0, 2, 1) / max(n, 1) + np.eye(n)
-    return torch.as_tensor(A, dtype=dtype, device="cuda")
+    """P P^T / n + I from a seed: with NumPy, as the card tests make it, up
+    to 64M entries; above (the published widths, where NumPy would take
+    tens of seconds) from the card's generator, symmetrized exactly."""
+    if batch * n * n <= 1 << 26:
+        rng = np.random.default_rng(seed)
+        P = rng.standard_normal((batch, n, n))
+        A = P @ P.transpose(0, 2, 1) / max(n, 1) + np.eye(n)
+        return torch.as_tensor(A, dtype=dtype, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    P = torch.randn(batch, n, n, generator=gen, device="cuda", dtype=torch.float64)
+    A = P @ P.mT / n
+    A = 0.5 * (A + A.mT) + torch.eye(n, dtype=torch.float64, device="cuda")
+    return A.to(dtype)
 
 
 def batched_kernel_phase(torch, k1):
     phase("9. batched K1 against plain version")
-    main_err, lanes_err, timings = 0.0, 0.0, {}
+    main_err, lanes_err, timings, worst = 0.0, 0.0, {}, {}
     for dname in ("float32", "float64"):
         dtype = getattr(torch, dname)
         n_max = k1.batched_max_n(dtype, "cuda")
@@ -539,11 +603,7 @@ def batched_kernel_phase(torch, k1):
             L = k1.cholesky_lower(A)
             launched = {r: c - before.get(r, 0) for r, c in k1.cholesky_lower.routes.items()
                         if c != before.get(r, 0)}
-            Lp = k1.cholesky_lower_reference(A)
-            torch.cuda.synchronize()
-            diff = (L - Lp).abs()
-            abs_err = float(diff.max())
-            rel = float((diff.amax(dim=(1, 2)) / Lp.abs().amax(dim=(1, 2))).max())
+            abs_err, rel, rel64 = plain_errors(torch, k1, A, L, route, worst)
             A64, L64 = A.double(), L.double()
             resid = float((torch.linalg.norm(L64 @ L64.mT - A64, dim=(1, 2))
                            / torch.linalg.norm(A64, dim=(1, 2))).max())
@@ -555,25 +615,31 @@ def batched_kernel_phase(torch, k1):
             bad = batch // 2
             B = A.clone()
             B[bad, n // 2, n // 2] = -1.0
-            Lb, Lbp = k1.cholesky_lower(B), k1.cholesky_lower_reference(B)
-            d, dp = (torch.diagonal(M, dim1=1, dim2=2) for M in (Lb, Lbp))
+            Lb = k1.cholesky_lower(B)
+            d = torch.diagonal(Lb, dim1=1, dim2=2)
             lanes_ok = torch.arange(batch, device="cuda") != bad
             contract = (bool(torch.equal((torch.isfinite(d) & (d > 0)).all(1), lanes_ok))
-                        and bool(torch.equal((torch.isfinite(dp) & (dp > 0)).all(1), lanes_ok))
-                        and bool(torch.equal(torch.isnan(d), torch.isnan(dp)))
                         and bool(torch.equal(Lb[lanes_ok], L[lanes_ok])))
+            for plain in (k1.ROUTE_REFERENCE[route], k1.cholesky_lower_reference):
+                dp = torch.diagonal(plain(B), dim1=1, dim2=2)
+                contract = (contract and bool(torch.equal(torch.isnan(d), torch.isnan(dp)))
+                            and bool(torch.equal((torch.isfinite(dp) & (dp > 0)).all(1),
+                                                 lanes_ok)))
             # On the persistent route each lane is the 2-D call on its matrix.
             one = (all(bool(torch.equal(L[i], k1.cholesky_lower(A[i].contiguous())))
                        for i in range(batch))
                    if route == "persistent" else True)
             print(f"{dname} (B, n)=({batch}, {n}) route={route}: rel_err={rel:.3e} (tol "
+                  f"{k1.ROUTE_TOL[route][dname]:g}) rel_err_64={rel64:.3e} (tol "
                   f"{TOL_FACTOR[dname]:g}) max_abs_err={abs_err:.3e} resid={resid:.3e} "
                   f"launches={launched} rerun_bit_equal={same} one_bad_lane_contract={contract}"
                   + (f" lanes_equal_2d={one}" if route == "persistent" else ""))
             check(launched == {route: 1},
                   f"{dname} {(batch, n)}: launches {launched}, not one on {route}")
             check(same, f"{dname} {(batch, n)}: two runs differ")
-            check(rel <= TOL_FACTOR[dname], f"{dname} {(batch, n)}: kernel differs from plain")
+            check(rel <= k1.ROUTE_TOL[route][dname],
+                  f"{dname} {(batch, n)}: kernel differs from its route's plain version")
+            check(rel64 <= TOL_FACTOR[dname], f"{dname} {(batch, n)}: kernel differs from plain")
             check(resid <= TOL_RESIDUAL[dname], f"{dname} {(batch, n)}: residual {resid:.3e}")
             check(upper_zero, f"{dname} {(batch, n)}: strict upper triangle not zero")
             check(contract, f"{dname} {(batch, n)}: per-lane non-SPD contract broken")
@@ -585,9 +651,10 @@ def batched_kernel_phase(torch, k1):
             if (batch, n) in BATCHED_TIMED:
                 t = {
                     "kernel": cuda_median_ms(torch, lambda: k1.cholesky_lower(A)),
-                    # a Python loop over columns: fewer samples
+                    # the route's plain version, a Python loop over columns:
+                    # fewer samples
                     "plain": cuda_median_ms(
-                        torch, lambda: k1.cholesky_lower_reference(A), runs=5, burst=1),
+                        torch, lambda: k1.ROUTE_REFERENCE[route](A), runs=5, burst=1),
                     "torch.linalg.cholesky_ex": cuda_median_ms(
                         torch, lambda: torch.linalg.cholesky_ex(A)),
                 }
@@ -600,6 +667,7 @@ def batched_kernel_phase(torch, k1):
                       + f" ({t['bound_by']}); kernel/library "
                       f"{t['kernel'] / t['torch.linalg.cholesky_ex']:.2f}, "
                       f"kernel/bound {t['kernel'] / t['bound']:.1f}")
+    print_worst(k1, worst)
     return main_err, lanes_err, timings
 
 
@@ -732,6 +800,59 @@ def layer_phase(torch, mt, k1, k8, ref):
               f"qp_layer {backend}: K1 launches {k1.cholesky_lower.launches}")
 
 
+def two_stage_phase(torch, mt, k1, k8, ref):
+    """Phase 12: solve_two_stage on the reference's two-stage problem under
+    each of its option sets; returns the K1 launches of its pallas solves
+    by source (the persistent kernel's, the batched kernels')."""
+    entry = ref["two_stage_1024"]
+    spec = entry["problem"]
+    phase(f"12. two-stage: solve_two_stage on random_two_stage({spec})")
+    t0 = time.perf_counter()
+    prob, lb, ub = mt.random_two_stage(**spec, device="cuda")
+    print(f"  n = {prob.n}, m = {prob.m}: U ({prob.N}, {prob.ns}^2), S ({prob.N}, "
+          f"{prob.ms}^2), C00 {prob.n0}^2, S0 {prob.m0}^2; built and uploaded in "
+          f"{time.perf_counter() - t0:.3f} s")
+    single = batched = 0
+    for name, want in entry["solves"].items():
+        options = want["options"]
+        reset_counts(k1, k8)
+        t0 = time.perf_counter()
+        st = mt.solve_two_stage(prob, lb, ub, device="cuda", print_level=40, **options)
+        wall = time.perf_counter() - t0
+        routes = dict(k1.cholesky_lower.routes)
+        trials = routes.get("cta", 0)
+        fact = st.counters.factorizations
+        rel = abs(st.objective - want["objective"]) / abs(want["objective"])
+        x0_err = float(np.abs(st.solution[:prob.n0] - np.asarray(want["x0"])).max())
+        norms = (np.linalg.norm(st.solution), np.linalg.norm(st.multipliers))
+        norm_rel = max(abs(got - w) / w for got, w in zip(
+            norms, (want["norm_x"], want["norm_y"])))
+        print(f"  {name} {options}: status={st.status.name} iter={st.iter} (ref "
+              f"{want['iter']}) objective={st.objective!r} rel={rel:.2e} "
+              f"x0_err={x0_err:.2e} norm_rel={norm_rel:.2e} wall={wall:.3f} s "
+              f"iter/s={st.iter / wall:.2f} factorizations={fact} K1 launches by "
+              f"route {routes}")
+        slack = 1 if options.get("factorization_dtype") else 0
+        check(int(st.status) == want["status"], f"two-stage {name}: {st.status.name}")
+        check(abs(st.iter - want["iter"]) <= slack,
+              f"two-stage {name}: {st.iter} iterations, reference {want['iter']}")
+        check(rel <= 1e-8, f"two-stage {name}: objective off by {rel:.2e}")
+        check(x0_err <= 1e-7, f"two-stage {name}: x0 off by {x0_err:.2e}")
+        check(norm_rel <= 1e-8, f"two-stage {name}: |x| or |y| off by {norm_rel:.2e}")
+        check(k8.syrk_update.launches == 0, f"two-stage {name} launched K8")
+        if options["linear_solver"] == "pallas":
+            # Each factorization trial: U on the CTA tier, S on the warp
+            # tier, C00 and S0 on the persistent kernel.
+            check(routes == {"cta": trials, "warp64": trials, "single": 2 * trials}
+                  and trials >= fact > 0,
+                  f"two-stage {name}: K1 routes {routes} for {fact} factorizations")
+            single += 2 * trials
+            batched += 2 * trials
+        else:
+            check(k1.cholesky_lower.launches == 0, f"two-stage {name} launched K1")
+    return single, batched
+
+
 def main():
     import torch
 
@@ -756,6 +877,7 @@ def main():
     kb_err, kl_err, kb_times = batched_kernel_phase(torch, k1)
     kb_launches, kl_launches = batched_path_phase(torch, mt, k1, k8, ref)
     layer_phase(torch, mt, k1, k8, ref)
+    ts_single, ts_batched = two_stage_phase(torch, mt, k1, k8, ref)
 
     t600 = k1_times[("float32", 600)]
     t8 = k8_times[("float32", (3840, 1792, 256))]
@@ -767,7 +889,7 @@ def main():
         "route": "cuda",
         "source": "madqp_tpu_torch/csrc/cholesky.cu",
         "replaces": "madqp_tpu/ops/pallas_chol.py:158",
-        "launches": k1_launches,
+        "launches": k1_launches + ts_single,
         "max_abs_err": k1_err,
         "ms": t600["kernel"],
         "plain_ms": t600["plain"],
@@ -791,7 +913,7 @@ def main():
         "route": "cuda",
         "source": "madqp_tpu_torch/csrc/cholesky_batched.cu",
         "replaces": "madqp_tpu/ops/pallas_chol.py:158",
-        "launches": kb_launches,
+        "launches": kb_launches + ts_batched,
         "max_abs_err": kb_err,
         "ms": tb["kernel"],
         "plain_ms": tb["plain"],

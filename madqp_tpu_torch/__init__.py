@@ -4,13 +4,15 @@ Port of `madqp_tpu` (the JAX package, which stays the reference): the
 dense Mehrotra predictor-corrector solve with the condensed, normal, K2
 and K2.5 KKT systems, shape bucketing and the shape-routed `autosolve`;
 batched lockstep solves of many small QPs (`solve_batched`,
-`BatchedMPCSolver`); and the differentiable QP layer (`qp_layer`,
-`qp_layer_general`, a `torch.autograd.Function`).
+`BatchedMPCSolver`); two-stage stochastic QPs through their
+Schur-complement KKT (`solve_two_stage`); and the differentiable QP layer
+(`qp_layer`, `qp_layer_general`, a `torch.autograd.Function`).
 The reference's Pallas kernels are hand-written CUDA kernels here: the
 Cholesky (K1: `ops/pallas_chol.py`, `csrc/cholesky.cu`), selected with
 `linear_solver="pallas"`, and the rank-k update (K8: `ops/syrk.py`,
 `csrc/syrk.cu`), the trailing update of the panel Cholesky behind
-`linear_solver="blocked"`.  On a batch, K1 factors one matrix per CTA
+`linear_solver="blocked"`.  On a stack of matrices (a batch, or the
+two-stage scenarios) K1 factors every matrix in one launch
 (`csrc/cholesky_batched.cu`).
 
 Importing the package sets no global state: every tensor carries an
@@ -48,9 +50,18 @@ from .models import (
     random_qp,
 )
 from .solver import MPCSolver, solve, autosolve
-from .parallel import BatchedMPCSolver, solve_batched
+from .parallel import (
+    BatchedMPCSolver,
+    solve_batched,
+    TwoStageProblem,
+    SchurKKT,
+    build_two_stage,
+    two_stage_to_flat_qp,
+    random_two_stage,
+    solve_two_stage,
+)
 from .diff import qp_layer, qp_layer_general, QPLayerSolution
-from .convert import problem_arrays_from_numpy, ipm_state_from_numpy
+from .convert import problem_arrays_from_numpy, ipm_state_from_numpy, two_stage_from_numpy
 
 __version__ = "0.1.0"
 
@@ -84,9 +95,16 @@ __all__ = [
     "autosolve",
     "BatchedMPCSolver",
     "solve_batched",
+    "TwoStageProblem",
+    "SchurKKT",
+    "build_two_stage",
+    "two_stage_to_flat_qp",
+    "random_two_stage",
+    "solve_two_stage",
     "qp_layer",
     "qp_layer_general",
     "QPLayerSolution",
     "problem_arrays_from_numpy",
     "ipm_state_from_numpy",
+    "two_stage_from_numpy",
 ]

@@ -1,9 +1,10 @@
 """Carry the reference package's data across into this package's structures.
 
 Each function takes a dict of NumPy arrays, one per field of the
-reference's `ProblemArrays` / `IPMState` (as `np.asarray` of each field
-gives them), and returns this package's NamedTuple with every floating
-array as a tensor of `dtype` on `device`.  Masks become bool tensors;
+reference's `ProblemArrays` / `IPMState` / `TwoStageProblem` (as
+`np.asarray` of each field gives them), and returns this package's
+NamedTuple with every floating array as a tensor of `dtype` on `device`.
+Masks become bool tensors;
 integer counters, the status code and the `initialized` flag become
 Python scalars (this package keeps them on the host).  The tests use this
 to feed one identical state to both packages' MPC `iteration`.
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from .ops.kernels import KKTVec
+from .parallel.structured import TwoStageProblem
 from .solver.state import IPMState, ProblemArrays
 
 _HOST_INTS = ("k", "n_fact", "n_solve", "status", "stall_k")
@@ -32,26 +34,32 @@ def _is_none(v) -> bool:
                          and v.shape == () and v.item() is None)
 
 
+def _fields_to_device(cls, fields: dict, dtype, device, optional):
+    """`cls` from NumPy arrays: bool masks, the `optional` fields None
+    where the reference has None, every other field a tensor."""
+    def convert(name):
+        v = fields.get(name)
+        if name in optional and _is_none(v):
+            return None
+        if name.startswith("has_"):
+            return torch.as_tensor(np.array(v, dtype=bool), device=device)
+        # np.array copies: arrays exported by other frameworks are read-only
+        return torch.as_tensor(np.array(v), dtype=dtype, device=device).contiguous()
+
+    return cls(**{name: convert(name) for name in cls._fields})
+
+
 def problem_arrays_from_numpy(fields: dict, dtype=torch.float64, *,
                               device) -> ProblemArrays:
     """ProblemArrays from NumPy arrays; `H` may be None (an LP)."""
-    def as_dev(v):
-        # np.array copies: arrays exported by other frameworks are read-only
-        return torch.as_tensor(np.array(v), dtype=dtype,
-                               device=device).contiguous()
+    return _fields_to_device(ProblemArrays, fields, dtype, device, ("H",))
 
-    def as_mask(v):
-        return torch.as_tensor(np.array(v, dtype=bool), device=device)
 
-    return ProblemArrays(
-        c0=as_dev(fields["c0"]),
-        c=as_dev(fields["c"]),
-        H=None if _is_none(fields.get("H")) else as_dev(fields["H"]),
-        A=as_dev(fields["A"]),
-        b=as_dev(fields["b"]),
-        has_lb=as_mask(fields["has_lb"]),
-        has_ub=as_mask(fields["has_ub"]),
-    )
+def two_stage_from_numpy(fields: dict, dtype=torch.float64, *,
+                         device) -> TwoStageProblem:
+    """TwoStageProblem from NumPy arrays; `H0` and `H_s` may be None (an
+    LP)."""
+    return _fields_to_device(TwoStageProblem, fields, dtype, device, ("H0", "H_s"))
 
 
 def ipm_state_from_numpy(fields: dict, dtype=torch.float64, *,

@@ -30,8 +30,10 @@ differ in conditioning and cost:
     (`torch.linalg.lu_factor_ex`), or with `chol_backend="blocked"` the
     signed no-pivot `blocked_ldl` and its inverse unit factor.
   * K2_5      — K2 with symmetric Jacobi scaling.
-The Schur and sparse formulations are not ported yet: `make_kkt` raises
-`NotImplementedError` naming the ROADMAP.md item that ports each.
+  * SCHUR     — the two-stage block-angular system
+    (`parallel/structured.py::SchurKKT`, with `TwoStageProblem` only).
+The sparse formulations are not ported yet: `make_kkt` raises
+`NotImplementedError` naming the ROADMAP.md item that ports them.
 
 A batch of problems (leading lane axis on every tensor: `prob.A` (B, m, n),
 `pr_diag` (B, n), `del_c` (B,)) factors through the condensed and normal
@@ -449,7 +451,6 @@ _KKT_REGISTRY = {
 # Formulations the reference package has and this package does not yet,
 # with the ROADMAP.md item that ports each.
 _NOT_PORTED = {
-    "schur": "Queue 1, item 11",
     "sparse-normal": "Queue 1, item 13",
     "sparse-augmented": "Queue 1, item 13",
 }
@@ -457,6 +458,12 @@ _NOT_PORTED = {
 
 def make_kkt(name: str, fact_dtype=None, chol_backend: str = "xla",
              solve_mode: str = "chol"):
+    if name == "schur":
+        # Imported here: parallel.structured imports this module.  Unlike
+        # the reference, which drops it, the backend reaches SchurKKT.
+        from ..parallel.structured import SchurKKT
+
+        return SchurKKT(fact_dtype=fact_dtype, chol_backend=chol_backend)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"kkt_system={name!r} is not ported yet "

@@ -22,12 +22,16 @@ per matrix (under `jax.vmap` one per matrix of the batch).  On Hopper:
   goes to the plain version.  `cholesky_lower.launches` counts every
   kernel launch (one per call), and `cholesky_lower.routes` counts them
   by route (`"single"` or a `batched_route` name).
-* `cholesky_lower_reference(A)` is the plain version: the same blocking,
-  the same per-column sweep of the diagonal block (which also inverts it)
-  and the same panel solve by the inverse, in PyTorch ops, on any device,
-  for one matrix or a stack.  The kernels for small stacks compute the
-  same function in another rounding order (32-column blocks, the panel
-  by substitution), which the tests' tolerances absorb.
+* The plain versions, in PyTorch ops, on any device, for one matrix or a
+  stack: `ROUTE_REFERENCE[route]` follows that route's kernel (its
+  blocking and pivot arithmetic): `cholesky_persistent_reference` (64-column
+  steps, the diagonal block in 16-column sub-blocks scaled by rsqrt, the
+  panel by the block's inverse), `cholesky_shared_reference` (32-column
+  blocks, the panel by forward substitution) and
+  `cholesky_unblocked_reference` (the register tiers' column sweep).
+  `cholesky_lower_reference(A)`, what `cholesky_lower` runs on the CPU,
+  takes 64-column blocks, sweeps each whole diagonal block with divisions
+  (which also inverts it) and solves the panel by the inverse.
 * `select_cholesky(backend)` returns the factor function the KKT layer
   uses: `"pallas"` -> `cholesky_lower`; anything else -> `dense_cholesky`
   (the library factorization with the same NaN contract).
@@ -48,6 +52,8 @@ import torch
 from . import _build
 
 BLOCK = 64  # block-column width; must equal NB in csrc/cholesky.cu
+SUB = 16  # sub-block of its diagonal factor (SB in csrc/cholesky.cu)
+SHARED_BLOCK = 32  # block-column width of the shared tiers (BLK in cholesky_batched.cu)
 
 SOURCE = _build.CSRC_DIR / "cholesky.cu"
 SOURCE_BATCHED = _build.CSRC_DIR / "cholesky_batched.cu"
@@ -81,48 +87,180 @@ def _check_matrix(A: torch.Tensor) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Plain version
+# Plain versions
 # ---------------------------------------------------------------------------
 
 
-def _factor_diag(D: torch.Tensor) -> torch.Tensor:
-    """Factor the (..., jb, jb) diagonal block D in place by the column
-    sweep (sqrt pivot, scale the column, rank-1 update of the later
-    columns) and apply the same sweep to the identity: returns D's lower
-    factor's inverse, zero above the diagonal."""
-    jb = D.shape[-1]
-    X = torch.eye(jb, dtype=D.dtype, device=D.device).expand(D.shape).clone()
-    for k in range(jb):
+def _sweep(D: torch.Tensor, X=None) -> None:
+    """Factor the (..., jb, jb) lower block D in place by the column sweep:
+    the pivot is sqrt(d), the column below it is divided by the pivot, and
+    the later columns lose the column's rank-1 product (lower triangle).
+    With X (an identity of D's shape) the same sweep is applied to it,
+    which leaves D's lower factor's inverse there."""
+    for k in range(D.shape[-1]):
         D[..., k, k] = torch.sqrt(D[..., k, k])
         piv = D[..., k, k, None]
         D[..., k + 1:, k] /= piv
-        X[..., k, :k + 1] /= piv
         col = D[..., k + 1:, k]
         D[..., k + 1:, k + 1:] -= torch.tril(col[..., :, None] * col[..., None, :])
-        X[..., k + 1:, :k + 1] -= col[..., :, None] * X[..., k, None, :k + 1]
+        if X is not None:
+            X[..., k, :k + 1] /= piv
+            X[..., k + 1:, :k + 1] -= col[..., :, None] * X[..., k, None, :k + 1]
+
+
+def _factor_diag(D: torch.Tensor) -> torch.Tensor:
+    """Factor the diagonal block D in place by the column sweep, which also
+    inverts it: returns D's lower factor's inverse, zero above the
+    diagonal."""
+    X = torch.eye(D.shape[-1], dtype=D.dtype, device=D.device).expand(D.shape).clone()
+    _sweep(D, X)
     return X
 
 
-def cholesky_lower_reference(A: torch.Tensor) -> torch.Tensor:
-    """Right-looking blocked Cholesky in plain PyTorch ops, of one matrix
-    or of each matrix of a (B, n, n) stack.
+def _factor_sub_block(s: torch.Tensor, x: torch.Tensor, c0: int) -> None:
+    """`csrc/cholesky.cu::factor_sub_block` (:102-150) on the SUB x SUB
+    block at (c0, c0) of s, in place: the column sweep with the pivot
+    sqrt(d), the column below it and row k of the inverse scaled by
+    rsqrt(d), a multiply where `_sweep` divides.  Writes the inverse into
+    x's block."""
+    D = s[..., c0:c0 + SUB, c0:c0 + SUB]
+    W = torch.eye(SUB, dtype=s.dtype, device=s.device).expand(D.shape).clone()
+    for k in range(SUB):
+        d = D[..., k, k].clone()
+        rp = torch.rsqrt(d)[..., None]
+        D[..., k + 1:, k] *= rp
+        D[..., k, k] = torch.sqrt(d)
+        W[..., k, :k + 1] *= rp
+        col = D[..., k + 1:, k]
+        D[..., k + 1:, k + 1:] -= torch.tril(col[..., :, None] * col[..., None, :])
+        W[..., k + 1:, :k + 1] -= col[..., :, None] * W[..., k, None, :k + 1]
+    x[..., c0:c0 + SUB, c0:c0 + SUB] = W
 
-    For each BLOCK-column block: the column sweep of the diagonal block,
-    which also yields its inverse L_D^-1; the panel solve as the product
-    X = P L_D^-T; and the trailing update C -= X X^T on the lower
-    triangle.  No early exit: a negative pivot's NaN propagates to the
-    rest of its factor, as in the TPU kernel and the CUDA kernels."""
+
+def _factor_diag_sub(D: torch.Tensor) -> torch.Tensor:
+    """`csrc/cholesky.cu::factor_diag` (:152-262): the jb x jb diagonal
+    block D, padded to BLOCK x BLOCK with an identity tail, factored in
+    place right-looking over SUB-column sub-blocks (each by
+    `_factor_sub_block`, then the panel below it times the sub-block's
+    inverse transposed and the trailing lower triangle's update); then the
+    inverse's off-diagonal blocks by block forward substitution,
+    X_IJ = -X_II (sum_{J <= Q < I} L_IQ X_QJ).  Returns D's inverse."""
+    jb = D.shape[-1]
+    s = torch.eye(BLOCK, dtype=D.dtype, device=D.device).expand(
+        D.shape[:-2] + (BLOCK, BLOCK)).clone()
+    s[..., :jb, :jb] = torch.tril(D)
+    x = torch.zeros_like(s)
+    for c0 in range(0, BLOCK, SUB):
+        c1 = c0 + SUB
+        _factor_sub_block(s, x, c0)
+        P = s[..., c1:, c0:c1]
+        P.copy_(P @ x[..., c0:c1, c0:c1].mT)
+        s[..., c1:, c1:] -= torch.tril(P @ P.mT)
+    for r0 in range(SUB, BLOCK, SUB):
+        r1 = r0 + SUB
+        T = s[..., r0:r1, :r0] @ x[..., :r0, :r0]
+        x[..., r0:r1, :r0] = -(x[..., r0:r1, r0:r1] @ T)
+    D.copy_(s[..., :jb, :jb])
+    return x[..., :jb, :jb]
+
+
+def _panel_by_inverse(X: torch.Tensor, D: torch.Tensor, Dinv: torch.Tensor) -> None:
+    X.copy_(X @ Dinv.mT)
+
+
+def _panel_by_substitution(X: torch.Tensor, D: torch.Tensor, _) -> None:
+    """Solve x L_D^T = p for every row of X in place, by forward
+    substitution over the columns: x_j /= L_D[j, j], then
+    x_c -= x_j L_D[c, j] for c > j."""
+    for j in range(D.shape[-1]):
+        X[..., j] /= D[..., j, j, None]
+        X[..., j + 1:] -= X[..., j, None] * D[..., None, j + 1:, j]
+
+
+def _right_looking(A: torch.Tensor, width: int, factor, panel) -> torch.Tensor:
+    """Right-looking blocked Cholesky over `width`-column blocks of one
+    matrix or of each matrix of a (B, n, n) stack: `factor(D)` factors the
+    diagonal block D in place (and returns what `panel` needs), then
+    `panel(X, D, aux)` turns the panel below it into X = P L_D^-T in
+    place, and the trailing lower triangle loses X X^T.  No early exit: a
+    negative pivot's NaN propagates to the rest of its factor, as in the
+    TPU kernel and the CUDA kernels."""
     n = _check_matrix(A)
     L = torch.tril(A)
-    for j0 in range(0, n, BLOCK):
-        j1 = min(j0 + BLOCK, n)
-        Dinv = _factor_diag(L[..., j0:j1, j0:j1])
+    for j0 in range(0, n, max(width, 1)):
+        j1 = min(j0 + width, n)
+        D = L[..., j0:j1, j0:j1]
+        aux = factor(D)
         if j1 == n:
             break
         X = L[..., j1:, j0:j1]
-        X.copy_(X @ Dinv.mT)
+        panel(X, D, aux)
         L[..., j1:, j1:] -= torch.tril(X @ X.mT)
     return L
+
+
+def cholesky_lower_reference(A: torch.Tensor) -> torch.Tensor:
+    """The plain version `cholesky_lower` runs on the CPU: BLOCK-column
+    blocks, each diagonal block by the column sweep (`_sweep`: sqrt pivot,
+    division), which also yields its inverse, and the panel as the product
+    X = P L_D^-T."""
+    return _right_looking(A, BLOCK, _factor_diag, _panel_by_inverse)
+
+
+def cholesky_persistent_reference(A: torch.Tensor) -> torch.Tensor:
+    """The plain version of the persistent kernel (`csrc/cholesky.cu`,
+    routes "single" and "persistent"): BLOCK-column steps, the diagonal
+    block factored and inverted in SUB-column sub-blocks with rsqrt
+    scaling (`_factor_diag_sub`, cholesky.cu:102-262), the panel as the
+    product X = P L_D^-T (phase 1, :306-319) and the trailing update
+    (phase 2, :321-344)."""
+    return _right_looking(A, BLOCK, _factor_diag_sub, _panel_by_inverse)
+
+
+def cholesky_shared_reference(A: torch.Tensor) -> torch.Tensor:
+    """The plain version of the shared-memory tiers (routes "warp64" and
+    "cta", `csrc/cholesky_batched.cu::madqp_cholesky_batched_shared_kernel`):
+    SHARED_BLOCK-column blocks, each diagonal block by the column sweep
+    with the IEEE square root and a division (`factor_rows`, step a), the
+    panel by forward substitution dividing by the pivots (step b), then
+    the trailing update (step c)."""
+    return _right_looking(A, SHARED_BLOCK, _sweep, _panel_by_substitution)
+
+
+def cholesky_unblocked_reference(A: torch.Tensor) -> torch.Tensor:
+    """The plain version of the register tiers (routes "warp8", "warp16",
+    "warp32", `madqp_cholesky_batched_regs_kernel`): the unblocked column
+    sweep of the whole matrix (`factor_rows`), the IEEE square root and a
+    division per pivot."""
+    return _right_looking(A, A.shape[-1], _sweep, None)
+
+
+# The plain version that follows each route's kernel (its blocking and its
+# pivot arithmetic, as far as PyTorch ops can: the kernels contract
+# a - b c into one FMA and sum the tile products in their own order).
+ROUTE_REFERENCE = {
+    "single": cholesky_persistent_reference,
+    "persistent": cholesky_persistent_reference,
+    "cta": cholesky_shared_reference,
+    "warp64": cholesky_shared_reference,
+    "warp32": cholesky_unblocked_reference,
+    "warp16": cholesky_unblocked_reference,
+    "warp8": cholesky_unblocked_reference,
+}
+
+# max|L - P| / max|P| per matrix, L a route's kernel factor and P its
+# route's plain version, by route and dtype: 1.5 to 3 times the largest
+# error measured on an H100 (chip_smoke.py phases 3 and 9: persistent
+# 1.66e-7 / 3.06e-16, on lane-axis stacks of 256-1024 matrices of order
+# 175-1259; shared tiers 1.63e-7 / 3.05e-16; register tiers 1.66e-7 /
+# 3.99e-16; PERF.md §6).  What remains is the kernels' FMA contraction of
+# a - b c and their order of the trailing sums, which no PyTorch op
+# follows.
+ROUTE_TOL = {
+    **dict.fromkeys(("single", "persistent"), {"float32": 2.5e-7, "float64": 5e-16}),
+    **dict.fromkeys(("cta", "warp64", "warp32", "warp16", "warp8"),
+                    {"float32": 5e-7, "float64": 1e-15}),
+}
 
 
 # ---------------------------------------------------------------------------

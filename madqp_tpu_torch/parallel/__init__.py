@@ -1,8 +1,28 @@
-"""Batched solving (port of `madqp_tpu/parallel`): lockstep solves of
-padded batches on one card (`BatchedMPCSolver`, `solve_batched`) and the
-padding that `pad_mode="bucket"` also uses (`pad_standard`).  The sparse
-batched and two-stage paths are ROADMAP.md Queue 1, items 14 and 11."""
+"""Batched and structured solving (port of `madqp_tpu/parallel`): lockstep
+solves of padded batches on one card (`BatchedMPCSolver`, `solve_batched`),
+the padding that `pad_mode="bucket"` also uses (`pad_standard`), and the
+two-stage stochastic QP with its Schur-complement KKT (`TwoStageProblem`,
+`SchurKKT`, `solve_two_stage`).  The sparse batched path is ROADMAP.md
+Queue 1, item 14."""
 
 from .batched import BatchedMPCSolver, solve_batched, pad_standard
+from .structured import (
+    TwoStageProblem,
+    SchurKKT,
+    build_two_stage,
+    two_stage_to_flat_qp,
+    random_two_stage,
+    solve_two_stage,
+)
 
-__all__ = ["BatchedMPCSolver", "solve_batched", "pad_standard"]
+__all__ = [
+    "BatchedMPCSolver",
+    "solve_batched",
+    "pad_standard",
+    "TwoStageProblem",
+    "SchurKKT",
+    "build_two_stage",
+    "two_stage_to_flat_qp",
+    "random_two_stage",
+    "solve_two_stage",
+]

@@ -107,9 +107,8 @@ class MPCSolver:
             )
         if opts.kkt_system == "schur":
             raise ValueError(
-                "kkt_system='schur' requires a block-angular TwoStageProblem"
-                " (the two-stage solver is not ported yet: ROADMAP.md"
-                " Queue 1, item 11)."
+                "kkt_system='schur' requires a block-angular TwoStageProblem:"
+                " solve it with madqp_tpu_torch.parallel.solve_two_stage."
             )
         if self.device.type == "cuda":
             # The float32 factorization path's accuracy rests on full-f32

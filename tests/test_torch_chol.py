@@ -3,10 +3,16 @@
 On the CPU the plain version (`cholesky_lower_reference`, which
 `cholesky_lower` runs for CPU tensors) is held against
 `pallas_cholesky(..., interpret=True)`, with the tolerances of
-tests/test_pallas.py: 1e-10 in float64, 1e-4 in float32.  The CUDA kernel
-itself is held against the plain version on the card by
+tests/test_pallas.py: 1e-10 in float64, 1e-4 in float32.  So is the plain
+version that follows each route's kernel (`ROUTE_REFERENCE`: the
+persistent kernel's sub-blocked rsqrt diagonal, the shared tiers' 32-column
+blocks with the panel by substitution, the register tiers' unblocked
+sweep), on stacks under `jax.vmap` at the routes' edges.  The CUDA kernels
+themselves are held against these plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -208,3 +214,93 @@ def test_stack_nan_contract_matches_vmapped_pallas(batch, n, dtype):
     assert np.isnan(got[1, -1, -1])
     good = [i for i in range(batch) if i != 1]
     np.testing.assert_allclose(got[good], want[good], rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# The plain version of each route (ROUTE_REFERENCE)
+# ---------------------------------------------------------------------------
+
+ROUTE_PLAIN = {"persistent": K1.cholesky_persistent_reference,
+               "shared": K1.cholesky_shared_reference,
+               "unblocked": K1.cholesky_unblocked_reference}
+# The edges of the routes (8, 16, 32 registers; 64 a warp; the 32-column
+# blocks; 163 and 235 the H100's n_max in float64 and float32) and of the
+# persistent kernel's 64-column steps.
+ROUTE_EDGES = (8, 16, 31, 32, 33, 63, 64, 65, 100, 163, 235)
+# max|L - L_pallas| / max|L_pallas| per matrix: float64 1e-14, float32
+# 4e-6 (measured at most 1.0e-15 and 5.0e-7 at these sizes).
+ROUTE_TOL = {np.float64: 1e-14, np.float32: 4e-6}
+
+
+@functools.lru_cache(maxsize=None)
+def vmapped_pallas(batch, n, dtype, bad=None):
+    """The stack of `route_stack` and its factors by the Pallas kernel under
+    jax.vmap, interpret mode (one program per matrix, as the batched
+    solver runs it); cached, since every plain version is held against
+    it."""
+    import jax
+
+    A = spd_stack(batch, n, dtype, seed=n)
+    if bad is not None:
+        A[bad] = not_spd(n, dtype, seed=7)
+    L = np.asarray(jax.vmap(lambda a: pallas_cholesky(a, interpret=True))(A))
+    A.flags.writeable = L.flags.writeable = False
+    return A, L
+
+
+def rel_err(got, want):
+    return np.abs(got - want).max(axis=(1, 2)) / np.abs(want).max(axis=(1, 2))
+
+
+def test_every_route_has_its_plain_version():
+    routes = {K1.batched_route(n, 163) for n in (1, 9, 17, 33, 65, 164)}
+    assert routes | {"single"} == set(K1.ROUTE_REFERENCE)
+    assert K1.ROUTE_REFERENCE["single"] is K1.cholesky_persistent_reference
+    assert K1.ROUTE_REFERENCE["cta"] is K1.ROUTE_REFERENCE["warp64"] \
+        is K1.cholesky_shared_reference
+    assert {K1.ROUTE_REFERENCE[f"warp{w}"] for w in (8, 16, 32)} == \
+        {K1.cholesky_unblocked_reference}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n", ROUTE_EDGES)
+@pytest.mark.parametrize("plain", sorted(ROUTE_PLAIN))
+def test_route_plain_matches_vmapped_pallas(plain, n, dtype):
+    A, want = vmapped_pallas(2, n, dtype)
+    got = ROUTE_PLAIN[plain](torch.from_numpy(A.copy())).numpy()
+    assert got.dtype == dtype and got.shape == A.shape
+    assert rel_err(got, want).max() <= ROUTE_TOL[dtype]
+    assert np.all(np.triu(got, 1) == 0)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n", [8, 33, 100])
+@pytest.mark.parametrize("plain", sorted(ROUTE_PLAIN))
+def test_route_plain_nan_contract(plain, n, dtype):
+    """One non-SPD matrix in a stack of three: the vmapped Pallas kernel's
+    per-lane verdict, NaN on its own diagonal (the last entry: no early
+    exit), and the other lanes bit-equal to the same stack without it."""
+    A, want = vmapped_pallas(3, n, dtype, bad=1)
+    fn = ROUTE_PLAIN[plain]
+    got = fn(torch.from_numpy(A.copy())).numpy()
+    for i in range(3):
+        assert diag_ok(got[i]) is diag_ok(want[i]) is (i != 1)
+    assert np.isnan(got[1, -1, -1])
+    clean, _ = vmapped_pallas(3, n, dtype)
+    assert np.array_equal(got[[0, 2]], fn(torch.from_numpy(clean.copy())).numpy()[[0, 2]])
+    assert rel_err(got[[0, 2]], want[[0, 2]]).max() <= ROUTE_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1, 16, 17, 40, 64])
+def test_sub_block_diagonal_factor_inverts_the_block(n, dtype):
+    """The persistent kernel's diagonal factor (16-column sub-blocks, rsqrt
+    scaling) gives the block's factor in place and its inverse (lower,
+    zero above the diagonal)."""
+    A = torch.from_numpy(spd(n, np.float64, seed=n)).to(dtype)
+    D = torch.tril(A)
+    Dinv = K1._factor_diag_sub(D)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(D, torch.linalg.cholesky(A), rtol=tol, atol=tol)
+    torch.testing.assert_close(Dinv @ D, torch.eye(n, dtype=dtype), rtol=tol, atol=tol)
+    assert bool((torch.triu(Dinv, 1) == 0).all())

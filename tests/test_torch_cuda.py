@@ -76,6 +76,38 @@ def test_kernel_is_deterministic(cuda, n, dtype):
     assert torch.equal(K1.cholesky_lower(A), K1.cholesky_lower(A))
 
 
+@pytest.mark.parametrize("dname", ["float64", "float32"])
+@pytest.mark.parametrize("batch,n", [
+    (0, 16), (0, 65), (0, 128), (0, 600),            # one matrix: "single"
+    (64, 8), (64, 16), (64, 31), (64, 33), (64, 64),  # registers, a warp
+    (64, 65), (1024, 96), (1024, 48), (8, 20), (8, 12), (16, "max"), (3, "max+1"),
+    (1024, 175)])                                     # SSN's S: lane axis in f64
+def test_each_route_matches_its_own_plain_version(cuda, batch, n, dname):
+    """Each route's factor within ROUTE_TOL (PERF.md §6) of the plain
+    version that follows its kernel (ROUTE_REFERENCE), relative to each
+    matrix's max|L|; the NaN of a non-SPD matrix at the same
+    diagonal places."""
+    dtype = getattr(torch, dname)
+    n = batched_order(n, dtype)
+    if batch:
+        A = torch.as_tensor(spd_stack(batch, n, seed=n), dtype=dtype, device=cuda)
+        route = K1.batched_route(n, K1.batched_max_n(dtype, cuda))
+    else:
+        A = torch.as_tensor(spd(n, seed=n), dtype=dtype, device=cuda)
+        route = "single"
+    before = K1.cholesky_lower.routes.get(route, 0)
+    L = K1.cholesky_lower(A)
+    assert K1.cholesky_lower.routes[route] == before + 1
+    Lp = K1.ROUTE_REFERENCE[route](A)
+    err = (L - Lp).abs().amax(dim=(-2, -1)) / Lp.abs().amax(dim=(-2, -1))
+    assert float(err.max()) <= K1.ROUTE_TOL[route][dname], (route, float(err.max()))
+    B = A.clone()
+    B[..., n // 2, n // 2] = -1.0
+    assert torch.equal(torch.isnan(torch.diagonal(K1.cholesky_lower(B), dim1=-2, dim2=-1)),
+                       torch.isnan(torch.diagonal(K1.ROUTE_REFERENCE[route](B),
+                                                  dim1=-2, dim2=-1)))
+
+
 def test_kernel_rejects_non_contiguous(cuda):
     A = torch.eye(8, dtype=torch.float64, device=cuda)[::2, ::2]
     with pytest.raises(ValueError, match="contiguous"):
@@ -345,3 +377,26 @@ def test_qp_layer_on_card_matches_cpu(cuda):
             assert torch.equal(g, w)
         else:
             torch.testing.assert_close(g, w, rtol=1e-8, atol=1e-8 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("fact", ["", "float32"])
+def test_two_stage_solve_on_card_matches_cpu(cuda, fact):
+    """solve_two_stage with "pallas" on the card (U on the CTA tier, S on
+    the warp tier, C00 and S0 on the persistent kernel: four launches per
+    factorization trial) and on the CPU (plain versions)."""
+    kw = dict(print_level=40, linear_solver="pallas", factorization_dtype=fact,
+              max_refine_steps=1 if fact else 0)
+    shape = dict(n0=24, ns=80, ms=40, m0=4, N=32, seed=2)
+    before = dict(K1.cholesky_lower.routes)
+    got = mt.solve_two_stage(*mt.random_two_stage(**shape, device=cuda), device=cuda, **kw)
+    routes = {r: c - before.get(r, 0) for r, c in K1.cholesky_lower.routes.items()
+              if c != before.get(r, 0)}
+    want = mt.solve_two_stage(*mt.random_two_stage(**shape, device="cpu"), device="cpu",
+                              **kw)
+    assert got.success and want.success
+    assert abs(got.iter - want.iter) <= (1 if fact else 0)
+    assert got.objective == pytest.approx(want.objective, rel=1e-10 if not fact else 1e-8)
+    np.testing.assert_allclose(got.solution, want.solution, rtol=0, atol=1e-7)
+    trials = routes.get("cta", 0)
+    assert routes == {"cta": trials, "warp64": trials, "single": 2 * trials}
+    assert trials >= got.counters.factorizations > 0

@@ -20,6 +20,7 @@ from madqp_tpu.solver.state import ProblemArrays as JProb
 from madqp_tpu_torch.convert import problem_arrays_from_numpy
 from madqp_tpu_torch.ops import kkt as TKKT
 from madqp_tpu_torch.ops.kernels import KKTVec as TVec
+from madqp_tpu_torch.ops.pallas_chol import cholesky_lower, dense_cholesky
 
 N, M = 30, 12
 TOL = {None: 1e-10, "float32": 1e-4}
@@ -148,5 +149,10 @@ def test_make_kkt_names():
     with pytest.raises(ValueError, match="unknown kkt_system") as want:
         JKKT.make_kkt("nope")
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TKKT.make_kkt("schur")
+    schur = TKKT.make_kkt("schur")
+    assert schur.name == "schur"
+    assert schur._chol is schur._dense._chol is dense_cholesky
+    # Unlike the reference's make_kkt, the backend reaches the Schur system.
+    pallas = TKKT.make_kkt("schur", fact_dtype="float32", chol_backend="pallas")
+    assert pallas._chol is pallas._dense._chol is cholesky_lower
+    assert pallas._dense.fact_dtype == torch.float32

@@ -15,7 +15,13 @@ the headline options (float32 factorization, one refinement step):
     options and endgame="f64" (smoke phase 10);
   * qp_layer64: iterations and the gradients of all six inputs of
     qp_layer for four lanes of the smoke's batch of 64 random QPs (phase
-    11; the problems come from chip_smoke.layer_problem).
+    11; the problems come from chip_smoke.layer_problem);
+  * two_stage_1024: status, iterations, objective, the first-stage x0 and
+    the norms of x and y of `solve_two_stage` on random_two_stage(n0=128,
+    ns=96, ms=48, m0=16, N=1024, seed=0) under each of three option sets
+    (phase 12; default options otherwise).  The reference's Schur system
+    takes the library Cholesky whatever linear_solver says, so its
+    "pallas" and "dense" entries are one solve.
 The card's machine has no JAX, so the smoke reads them from the file; this
 test regenerates them on the CPU and asserts the committed file still
 holds them.
@@ -157,9 +163,45 @@ def dense_reference():
     return out
 
 
+# Phase 12's problem (random_two_stage's arguments but N) and option sets.
+TWO_STAGE = dict(n0=128, ns=96, ms=48, m0=16, seed=0, qp=True)
+TWO_STAGE_N = (1024, 512, 256)  # the largest N that every option set solves
+TWO_STAGE_OPTIONS = {
+    "pallas": {"linear_solver": "pallas"},
+    "dense": {"linear_solver": "dense"},
+    "pallas_f32": {"linear_solver": "pallas", "factorization_dtype": "float32",
+                   "max_refine_steps": 1},
+}
+
+
+def two_stage_record(prob, lb, ub, options):
+    from madqp_tpu.parallel import solve_two_stage
+
+    st = solve_two_stage(prob, lb, ub, print_level=40, **options)
+    y = np.asarray(st.multipliers)
+    return {"options": options, **_record(st),
+            "x0": np.asarray(st.solution[:TWO_STAGE["n0"]]).tolist(),
+            "norm_x": float(np.linalg.norm(st.solution)),
+            "norm_y": float(np.linalg.norm(y))}
+
+
+def two_stage_reference(names=tuple(TWO_STAGE_OPTIONS), sizes=TWO_STAGE_N):
+    """`solve_two_stage` on TWO_STAGE at the largest N of `sizes` where
+    every option set of `names` reaches SOLVE_SUCCEEDED."""
+    from madqp_tpu.parallel import random_two_stage
+
+    for N in sizes:
+        prob, lb, ub = random_two_stage(N=N, **TWO_STAGE)
+        recs = {name: two_stage_record(prob, lb, ub, TWO_STAGE_OPTIONS[name])
+                for name in names}
+        if all(rec["status"] == 1 for rec in recs.values()):
+            return {"problem": dict(TWO_STAGE, N=N), "solves": recs}
+    raise RuntimeError("no N of TWO_STAGE_N solves under every option set")
+
+
 def generate_reference():
     return {**dense_reference(), "batched512": batched_reference(range(BATCH)),
-            "qp_layer64": layer_reference()}
+            "qp_layer64": layer_reference(), "two_stage_1024": two_stage_reference()}
 
 
 def _flatten(ref):
@@ -213,6 +255,30 @@ def test_committed_layer_gradients_match_jax():
             g = np.asarray(g)
             np.testing.assert_allclose(np.asarray(got["grads"][name]), g, rtol=1e-10,
                                        atol=1e-10 * np.abs(g).max(), err_msg=f"{lane} {name}")
+
+
+def test_committed_two_stage_matches_jax():
+    """two_stage_1024: the float64 solve recomputed (about a minute on the
+    CPU): status and iterations equal, objective, x0 and the norms to 1e-10
+    relative.  The reference's Schur system ignores linear_solver, so its
+    "pallas" entry must equal its "dense" one; the float32 entry is
+    recomputed only by the --write run."""
+    committed = json.loads(REF_PATH.read_text())["two_stage_1024"]
+    assert committed["problem"]["N"] in TWO_STAGE_N
+    assert committed["problem"] == dict(TWO_STAGE, N=committed["problem"]["N"])
+    solves = committed["solves"]
+    assert solves.keys() == TWO_STAGE_OPTIONS.keys()
+    for name, rec in solves.items():
+        assert rec["options"] == TWO_STAGE_OPTIONS[name] and rec["status"] == 1, name
+        assert len(rec["x0"]) == TWO_STAGE["n0"], name
+    assert {k: v for k, v in solves["pallas"].items() if k != "options"} == \
+        {k: v for k, v in solves["dense"].items() if k != "options"}
+    fresh = two_stage_reference(("dense",), (committed["problem"]["N"],))["solves"]["dense"]
+    got = solves["dense"]
+    assert got["status"] == fresh["status"] and got["iter"] == fresh["iter"]
+    for key in ("objective", "norm_x", "norm_y"):
+        assert got[key] == pytest.approx(fresh[key], rel=1e-10), key
+    np.testing.assert_allclose(got["x0"], fresh["x0"], rtol=1e-10, atol=1e-12)
 
 
 if __name__ == "__main__":

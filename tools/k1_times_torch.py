@@ -11,6 +11,7 @@ and n = 2000 solves) and on stacks (B, n, n): (512, 42) and (512, 16), W
 and S of the batched-512 solve; (64, 32) and (64, 8), the qp_layer batch;
 (4, 200) and (4, 600), S and W of the n = 500 QPs as one batch; (512, 100)
 and (256, 160), large stacks of mid-size matrices (one CTA per matrix);
+(1024, 96) and (1024, 48), U and S of the two-stage cell;
 each stack beside `torch.linalg.cholesky_ex` on it; float32 and float64.
 A time is chip_smoke.py's (`cuda_median_ms`, the script beside this
 one's folder, whichever checkout is timed): the median of 20 samples,
@@ -30,7 +31,7 @@ from pathlib import Path
 
 SINGLE = (600, 2500)
 STACKS = ((512, 42), (512, 16), (64, 32), (64, 8), (4, 200), (4, 600), (512, 100),
-          (256, 160))
+          (256, 160), (1024, 96), (1024, 48))
 
 
 def smoke_module():

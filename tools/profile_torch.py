@@ -15,10 +15,15 @@ backend), all with the headline options, and the batched cell
 with `endgame="f64"`, with `"pallas"` (K1's batched kernels) and
 `"dense"`; set-up once, then `solve_batch`), and the four n = 500 QPs as
 one batch with `"pallas"` (W above the shared-memory limit: the persistent
-K1 with a lane axis): times unprofiled solves on the
-host clock after one warm-up solve, then profiles one solve with
-torch.profiler and sums kernel time by layer (K1, K8, library Cholesky,
-triangular solves, matmul, reductions, elementwise).  The idle share is 1 - (sum of kernel times) / (wall of the
+K1 with a lane axis), and the two-stage cell (`solve_two_stage` on the
+problem of testdata/jax_reference.json's two_stage_1024 entry, default
+options, with `"pallas"` and `"dense"` alternating in one process): times
+unprofiled solves on the host clock after one warm-up solve, then
+profiles one solve with torch.profiler, sums kernel time by layer (K1,
+K8, library Cholesky, triangular solves, matmul, reductions,
+elementwise) and the host time of the CUDA runtime calls by name (the
+launches, and the port's own kernels' attribute and occupancy queries).
+The idle share is 1 - (sum of kernel times) / (wall of the
 profiled solve): the solve runs on one stream, so kernels do not overlap,
 and the profiler's host overhead inflates the wall, so the share is an
 upper bound.  `init_s` is the solve's set-up (standard form and upload)
@@ -80,7 +85,8 @@ def solve(torch, mt, qp, entry, options):
 
 def device_profile(torch, run):
     """Profile one call of `run`: returns (its result, its wall in s,
-    kernel busy ms by layer, launches by layer)."""
+    kernel busy us by layer, launches by layer, host us in CUDA runtime
+    calls by name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -91,6 +97,7 @@ def device_profile(torch, run):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us, launches = collections.Counter(), collections.Counter()
+    runtime_us = collections.Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             # device_time_total replaced cuda_time_total in newer releases
@@ -98,15 +105,18 @@ def device_profile(torch, run):
                                           if hasattr(e, "device_time_total")
                                           else e.cuda_time_total)
             launches[layer_of(e.name)] += 1
-    return out, wall, busy_us, launches
+        elif e.name.startswith("cuda"):  # a CUDA runtime call, on the host
+            runtime_us[e.name] += e.cpu_time_total
+    return out, wall, busy_us, launches, runtime_us
 
 
-def summary(wall, busy_us, launches, **extra):
+def summary(wall, busy_us, launches, runtime_us, **extra):
     busy_ms = sum(busy_us.values()) / 1e3
     return {"wall_ms": wall * 1e3, **extra, "kernel_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / (wall * 1e3),
             "layers_ms": {k: v / 1e3 for k, v in busy_us.most_common()},
-            "launches": dict(launches.most_common())}
+            "launches": dict(launches.most_common()),
+            "host_runtime_calls_ms": {k: v / 1e3 for k, v in runtime_us.most_common(8)}}
 
 
 def profile_cell(torch, mt, shape, seeds, entry="solve", **options):
@@ -121,12 +131,12 @@ def profile_cell(torch, mt, shape, seeds, entry="solve", **options):
         st, wall = solve(torch, mt, make(seed), entry, options)
         runs.append({"seed": seed, "wall_s": wall, "iters": st.iter,
                      "init_s": st.counters.init_time})
-    (st, _), wall, busy_us, launches = device_profile(
+    (st, _), wall, busy_us, launches, runtime_us = device_profile(
         torch, lambda: solve(torch, mt, make(seeds[0]), entry, options))
     return {
         "unprofiled": runs,
-        "profiled": summary(wall, busy_us, launches, seed=seeds[0], iters=st.iter,
-                            factorizations=st.counters.factorizations),
+        "profiled": summary(wall, busy_us, launches, runtime_us, seed=seeds[0],
+                            iters=st.iter, factorizations=st.counters.factorizations),
     }
 
 
@@ -151,10 +161,10 @@ def profile_batch_n500(torch, mt, reps=3):
         t0 = time.perf_counter()
         run()
         walls.append(time.perf_counter() - t0)
-    stats, wall, busy_us, launches = device_profile(torch, run)
+    stats, wall, busy_us, launches, runtime_us = device_profile(torch, run)
     return {
         "unprofiled": {"wall_s": walls},
-        "profiled": summary(wall, busy_us, launches, lanes=len(stats),
+        "profiled": summary(wall, busy_us, launches, runtime_us, lanes=len(stats),
                             iters=[st.iter for st in stats]),
     }
 
@@ -180,14 +190,53 @@ def profile_batched(torch, mt, backend, reps=3):
     ok = int((final.status == 1).sum())
     if ok != BATCH:
         raise RuntimeError(f"batched {backend}: {BATCH - ok} lanes unsolved")
-    final, wall, busy_us, launches = device_profile(torch, solver.solve_batch)
+    final, wall, busy_us, launches, runtime_us = device_profile(torch, solver.solve_batch)
     return {
         "setup_s": setup,
         "unprofiled": {"wall_s": walls,
                        "instances_per_s": [BATCH / w for w in walls]},
-        "profiled": summary(wall, busy_us, launches, lanes=BATCH,
+        "profiled": summary(wall, busy_us, launches, runtime_us, lanes=BATCH,
                             max_iters=int(final.k.max())),
     }
+
+
+def profile_two_stage(torch, mt, reps=5):
+    """`solve_two_stage` on the two_stage_1024 problem with default options,
+    `linear_solver="pallas"` and `"dense"` in one process: the problem
+    built on the card once (set-up), a warm-up solve of each, `reps` pairs
+    of unprofiled solves in alternating order (pallas first, then dense
+    first), then one profiled solve of each."""
+    ref = Path(mt.__file__).resolve().parent / "testdata" / "jax_reference.json"
+    spec = json.loads(ref.read_text())["two_stage_1024"]["problem"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prob, lb, ub = mt.random_two_stage(**spec, device="cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+
+    def run(backend):
+        st = mt.solve_two_stage(prob, lb, ub, device="cuda", print_level=40,
+                                linear_solver=backend)
+        if not st.success:
+            raise RuntimeError(f"two-stage {backend}: {st.status.name}")
+        return st
+
+    backends = ("pallas", "dense")
+    for backend in backends:
+        run(backend)  # warm-up
+    walls = {backend: [] for backend in backends}
+    for rep in range(reps):
+        for backend in backends[::1 if rep % 2 == 0 else -1]:
+            t0 = time.perf_counter()
+            run(backend)
+            walls[backend].append(time.perf_counter() - t0)
+    profiled = {}
+    for backend in backends:
+        st, wall, busy_us, launches, runtime_us = device_profile(torch, lambda: run(backend))
+        profiled[backend] = summary(wall, busy_us, launches, runtime_us, iters=st.iter,
+                                    factorizations=st.counters.factorizations)
+    return {"problem": spec, "setup_s": setup, "unprofiled": {"wall_s": walls},
+            "profiled": profiled}
 
 
 CELLS = {
@@ -202,6 +251,7 @@ CELLS = {
     "batched512_pallas": lambda torch, mt: profile_batched(torch, mt, "pallas"),
     "batched512_dense": lambda torch, mt: profile_batched(torch, mt, "dense"),
     "n500x4_batch_pallas": lambda torch, mt: profile_batch_n500(torch, mt),
+    "two_stage_1024": lambda torch, mt: profile_two_stage(torch, mt),
 }
 
 
