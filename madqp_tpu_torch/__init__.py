@@ -6,7 +6,11 @@ and K2.5 KKT systems, shape bucketing and the shape-routed `autosolve`;
 batched lockstep solves of many small QPs (`solve_batched`,
 `BatchedMPCSolver`); two-stage stochastic QPs through their
 Schur-complement KKT (`solve_two_stage`); and the differentiable QP layer
-(`qp_layer`, `qp_layer_general`, a `torch.autograd.Function`).
+(`qp_layer`, `qp_layer_general`, a `torch.autograd.Function`); and the
+MPS → presolve → Ruiz scaling pipeline (`read_mps`, `presolve_qp`,
+`scale_qp`, `unscale_stats`, NumPy and SciPy as in the reference) with the
+structured suite (`structured_suite`, `write_suite`) that
+`tools/run_suite_torch.py` drives.
 The reference's Pallas kernels are hand-written CUDA kernels here: the
 Cholesky (K1: `ops/pallas_chol.py`, `csrc/cholesky.cu`), selected with
 `linear_solver="pallas"`, and the rank-k update (K8: `ops/syrk.py`,
@@ -48,7 +52,23 @@ from .models import (
     simple_lp,
     random_lp,
     random_qp,
+    banded_sparse_lp,
+    separable_qp,
+    ineq_qp,
+    grid_lp,
+    grid3d_lp,
+    netflow_grid_lp,
+    scale_qp,
+    ruiz_scaling_factors,
+    unscale_stats,
+    RuizScaling,
+    presolve_qp,
+    PresolveInfo,
+    PresolveStatus,
+    structured_suite,
+    write_suite,
 )
+from .io import read_mps, parse_mps, write_mps
 from .solver import MPCSolver, solve, autosolve
 from .parallel import (
     BatchedMPCSolver,
@@ -90,6 +110,24 @@ __all__ = [
     "simple_lp",
     "random_lp",
     "random_qp",
+    "banded_sparse_lp",
+    "separable_qp",
+    "ineq_qp",
+    "grid_lp",
+    "grid3d_lp",
+    "netflow_grid_lp",
+    "scale_qp",
+    "ruiz_scaling_factors",
+    "unscale_stats",
+    "RuizScaling",
+    "presolve_qp",
+    "PresolveInfo",
+    "PresolveStatus",
+    "structured_suite",
+    "write_suite",
+    "read_mps",
+    "parse_mps",
+    "write_mps",
     "MPCSolver",
     "solve",
     "autosolve",

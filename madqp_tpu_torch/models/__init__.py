@@ -7,7 +7,12 @@ from .qp import (
     build_standard_form_sparse,
     from_coo,
 )
-from .generators import dense_dummy_qp, simple_lp, random_lp, random_qp
+from .generators import (dense_dummy_qp, simple_lp, random_lp, random_qp,
+                         banded_sparse_lp, separable_qp, ineq_qp, grid_lp, grid3d_lp,
+                         netflow_grid_lp)
+from .scaling import scale_qp, ruiz_scaling_factors, unscale_stats, RuizScaling
+from .presolve import presolve_qp, PresolveInfo, PresolveStatus
+from .suite import structured_suite, write_suite
 
 __all__ = [
     "QuadraticProblem",
@@ -21,4 +26,19 @@ __all__ = [
     "simple_lp",
     "random_lp",
     "random_qp",
+    "banded_sparse_lp",
+    "separable_qp",
+    "ineq_qp",
+    "grid_lp",
+    "grid3d_lp",
+    "netflow_grid_lp",
+    "scale_qp",
+    "ruiz_scaling_factors",
+    "unscale_stats",
+    "RuizScaling",
+    "presolve_qp",
+    "PresolveInfo",
+    "PresolveStatus",
+    "structured_suite",
+    "write_suite",
 ]

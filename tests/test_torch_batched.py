@@ -9,8 +9,10 @@
   the escalated second.
 * Whole batched solves against the JAX package's `BatchedMPCSolver` on the
   cases of tests/test_parallel.py: status, per-lane iterations and
-  objective (1e-8 relative in float64; iterations within 1 and objective
-  within 1e-6 where a float32 phase hands over).
+  objective (1e-8 relative in float64).  Where a float32 phase hands over
+  to the float64 rescue: the same lanes rescued in both packages,
+  iterations within RESCUE_ITER_BAND, objective within 1e-9 relative and
+  solution within 1e-6.
 * The port's batched lanes against its own single solves (equal
   iterations in float64), and the paths that raise.
 """
@@ -34,6 +36,12 @@ from madqp_tpu_torch.solver.mpc import BatchedMPCKernel
 from madqp_tpu_torch.utils.options import load_options as port_options
 
 ITER_RTOL = 1e-9
+# Whether a float32 Cholesky of a near-singular Schur complement passes
+# differs between LAPACK builds on bit-equal inputs, so a float32 phase
+# can stall (or converge) at another iteration: measured spread 2
+# iterations under 1, 2 and 6 torch threads (tests/test_torch_solver.py
+# gives the band's reason: one stall window plus a margin).
+RESCUE_ITER_BAND = 8
 RESIDUALS = ("inf_pr", "inf_du", "inf_compl", "best_worst")
 
 
@@ -157,7 +165,7 @@ def _headline(pkg):
                 regularization=pkg.FixedRegularization(1e-8, -1e-8), endgame="f64")
 
 
-# name -> (JAX problems, options for a package, float32 phase?, name
+# name -> (JAX problems, options for a package, float64 rescue?, name
 # prefix of the problems compared by status only).  endgame="f64" is pinned on both sides: the
 # JAX package would otherwise rescue on the host with its native library.
 SOLVES = {
@@ -180,22 +188,39 @@ SOLVES = {
 }
 
 
+def _phase1_rescued(qps, options, pkg):
+    """Lanes whose float32 phase, run alone (stall detection armed as the
+    two-phase driver arms it, no float64 phase), ends unconverged."""
+    kw = dict(options, precision_scheme="simple", stall_exit=5,
+              max_iter=min(options.get("max_iter", 3000), 80), print_level=40)
+    if pkg is mq:
+        stats = JBatched.from_problems(qps, **kw).solve_all()
+    else:
+        stats = BatchedMPCSolver.from_problems([_port_qp(q) for q in qps],
+                                               device="cpu", **kw).solve_all()
+    return [s.status.name != "SOLVE_SUCCEEDED" for s in stats]
+
+
 @pytest.mark.parametrize("case", sorted(SOLVES))
 def test_batched_solve_matches_jax(case):
-    make, options, f32, status_only = SOLVES[case]
+    make, options, rescue, status_only = SOLVES[case]
     qps = make()
     want = JBatched.from_problems(qps, print_level=40, **options(mq)).solve_all()
     solver = BatchedMPCSolver.from_problems([_port_qp(q) for q in qps], device="cpu",
                                             print_level=40, **options(mt))
     got = solver.solve_all()
     assert len(got) == len(want) == len(qps)
+    if rescue:
+        rescued = _phase1_rescued(qps, options(mt), mt)
+        assert any(rescued) and rescued == _phase1_rescued(qps, options(mq), mq)
     for i, (g, w) in enumerate(zip(got, want)):
         assert g.status == w.status == mt.Status.SOLVE_SUCCEEDED, (case, i)
         if status_only and qps[i].name.startswith(status_only):
             continue
-        if f32:
-            assert abs(g.iter - w.iter) <= 1, (case, i, g.iter, w.iter)
-            assert g.objective == pytest.approx(w.objective, rel=1e-6, abs=1e-8)
+        if rescue:
+            assert abs(g.iter - w.iter) <= RESCUE_ITER_BAND, (case, i, g.iter, w.iter)
+            assert g.objective == pytest.approx(w.objective, rel=1e-9)
+            np.testing.assert_allclose(g.solution, w.solution, atol=1e-6)
         else:
             assert g.iter == w.iter, (case, i)
             assert g.objective == pytest.approx(w.objective, rel=1e-8, abs=1e-12)

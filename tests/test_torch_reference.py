@@ -21,7 +21,16 @@ the headline options (float32 factorization, one refinement step):
     ns=96, ms=48, m0=16, N=1024, seed=0) under each of three option sets
     (phase 12; default options otherwise).  The reference's Schur system
     takes the library Cholesky whatever linear_solver says, so its
-    "pallas" and "dense" entries are one solve.
+    "pallas" and "dense" entries are one solve;
+  * suite_large: the reference runner's record (benchmarks/run_suite.py
+    ::run_instance: status, status_detail, iterations, objective) of each
+    instance of the structured suite's large tier, seed 0, written with
+    write_suite and read back from its MPS file, under the runner's
+    default options (float64, dense) and with --mixed-precision, plus the
+    bucketed orders of W (null where the problem has no Hessian: W is
+    then diagonal and never factored) and S (phase 13);
+  * real_mm: the same record of the eight files of tests/data/real_mm,
+    float64, the runner's default options (phase 13's corpus).
 The card's machine has no JAX, so the smoke reads them from the file; this
 test regenerates them on the CPU and asserts the committed file still
 holds them.
@@ -36,11 +45,14 @@ is independent of the batch: the staleness check recomputes CHECKED_LANES
 as a batch of their own and compares them with the file.
 
 Regenerate the file with:  python tests/test_torch_reference.py --write
+(or only some entries:  ... --write --keys suite_large real_mm)
 """
 
 import importlib.util
 import json
+import os
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -199,9 +211,83 @@ def two_stage_reference(names=tuple(TWO_STAGE_OPTIONS), sizes=TWO_STAGE_N):
     raise RuntimeError("no N of TWO_STAGE_N solves under every option set")
 
 
+def runner_options(mixed=False):
+    """benchmarks/run_suite.py's default options (its main), dense path;
+    mixed = --mixed-precision."""
+    opts = dict(print_level=40, tol=1e-8, max_iter=300, max_ncorr=3,
+                kkt_system="condensed", linear_solver="dense",
+                step_rule=mq.AdaptiveStep(0.995),
+                regularization=mq.FixedRegularization(1e-8, -1e-8),
+                backend="device", pad_mode="bucket")
+    if mixed:
+        opts.update(factorization_dtype="float32", max_refine_steps=1)
+    return opts
+
+
+SUITE_OPTIONS = {"f64": False, "mixed": True}
+# Recomputed only by the --write run, not by the staleness check
+# (tests/test_torch_reference_suite.py), for its time on a shared CPU: the
+# instances with a bucketed W or S of order 1024 or more, 21 s in float64
+# and 34 s mixed of the tier's 31 s and 51 s on an idle 8-core host.
+_LARGEST = ("bandedlp_4000_0", "gridlp_32_0", "cvxqp_2000_0", "chainqp_2000_0",
+            "lasso_2000_0", "laplqp_40_0", "svm_300x40_0")
+STALE_SKIP = {"f64": _LARGEST, "mixed": _LARGEST}
+
+
+def _run_suite():
+    sys.path.insert(0, str(REPO / "benchmarks"))
+    import run_suite
+
+    return run_suite
+
+
+def runner_record(name, qp, mixed=False):
+    rec = _run_suite().run_instance(name, qp, runner_options(mixed))
+    return {k: rec.get(k) for k in ("status", "status_detail", "iter", "objective")}
+
+
+def kkt_orders(qp):
+    """Bucketed (W, S) orders of the dense solve of `qp` after the runner's
+    presolve and scaling; W is None when the problem has no Hessian."""
+    qp_s, _ = mq.scale_qp(mq.presolve_qp(qp)[0])
+    prob = mq.MPCSolver(qp_s, **runner_options()).prob
+    m, n = prob.A.shape
+    return (None if prob.H is None else int(n)), int(m)
+
+
+def suite_large_reference(skip=None, sets=tuple(SUITE_OPTIONS)):
+    """suite_large (module docstring) under the option sets `sets`; `skip`
+    maps an option set to the instance names left out."""
+    from madqp_tpu.models.suite import write_suite
+
+    skip = skip or {}
+    out = {"problems": "write_suite(size='large', seeds=(0,)), read back with read_mps",
+           "options": {k: {"linear_solver": "dense", "mixed_precision": v}
+                       for k, v in SUITE_OPTIONS.items()},
+           "instances": {}}
+    with tempfile.TemporaryDirectory() as d:
+        for path in write_suite(d, size="large", seeds=(0,)):
+            name = os.path.basename(path).split(".")[0]
+            qp = mq.read_mps(path)
+            W, S = kkt_orders(qp)
+            rec = {"W": W, "S": S}
+            for key in sets:
+                if name not in skip.get(key, ()):
+                    rec[key] = runner_record(name, qp, SUITE_OPTIONS[key])
+            out["instances"][name] = rec
+    return out
+
+
+def real_mm_reference():
+    data = REPO / "tests" / "data" / "real_mm"
+    return {f.split(".")[0]: runner_record(f.split(".")[0], mq.read_mps(str(data / f)))
+            for f in sorted(os.listdir(data))}
+
+
 def generate_reference():
     return {**dense_reference(), "batched512": batched_reference(range(BATCH)),
-            "qp_layer64": layer_reference(), "two_stage_1024": two_stage_reference()}
+            "qp_layer64": layer_reference(), "two_stage_1024": two_stage_reference(),
+            "suite_large": suite_large_reference(), "real_mm": real_mm_reference()}
 
 
 def _flatten(ref):
@@ -281,11 +367,32 @@ def test_committed_two_stage_matches_jax():
     np.testing.assert_allclose(got["x0"], fresh["x0"], rtol=1e-10, atol=1e-12)
 
 
+def _same_record(got, want, key):
+    assert got["status"] == want["status"], key
+    assert got["status_detail"] == want["status_detail"], key
+    assert got["iter"] == want["iter"], key
+    assert got["objective"] == pytest.approx(want["objective"], rel=1e-10), key
+
+
+def test_committed_real_mm_matches_jax():
+    committed = json.loads(REF_PATH.read_text())["real_mm"]
+    fresh = real_mm_reference()
+    assert committed.keys() == fresh.keys() and len(fresh) == 8
+    for name, want in fresh.items():
+        _same_record(committed[name], want, name)
+
+
 if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    ref = generate_reference()
+    if "--keys" in sys.argv:
+        keys = sys.argv[sys.argv.index("--keys") + 1:]
+        makers = {"suite_large": suite_large_reference, "real_mm": real_mm_reference}
+        ref = json.loads(REF_PATH.read_text())
+        ref.update({k: makers[k]() for k in keys})
+    else:
+        ref = generate_reference()
     text = json.dumps(ref, indent=1) + "\n"
     if "--write" in sys.argv:
         REF_PATH.write_text(text)

@@ -17,7 +17,12 @@ with `endgame="f64"`, with `"pallas"` (K1's batched kernels) and
 one batch with `"pallas"` (W above the shared-memory limit: the persistent
 K1 with a lane axis), and the two-stage cell (`solve_two_stage` on the
 problem of testdata/jax_reference.json's two_stage_1024 entry, default
-options, with `"pallas"` and `"dense"` alternating in one process): times
+options, with `"pallas"` and `"dense"` alternating in one process), and
+the suite cell (the structured suite's large tier, seed 0, written as MPS
+files and run through the suite runner's `run_instance` with its default
+options and `"pallas"`: host seconds by stage, parse, presolve, scale,
+solve and unscale, then all 19 runs profiled, the idle share over the
+solves' walls): times
 unprofiled solves on the host clock after one warm-up solve, then
 profiles one solve with torch.profiler, sums kernel time by layer (K1,
 K8, library Cholesky, triangular solves, matmul, reductions,
@@ -239,6 +244,56 @@ def profile_two_stage(torch, mt, reps=5):
             "profiled": profiled}
 
 
+def profile_suite_large(torch, mt, linear_solver="pallas"):
+    """The structured suite's large tier (seed 0) through the suite runner
+    (tools/run_suite_torch.py): `write_suite` to a temporary directory,
+    `read_dir` (parse seconds per file), then `run_instance` on every file
+    with the runner's default options and `linear_solver` (host seconds of
+    presolve, scale, solve and unscale per instance, after one warm-up run
+    of the first instance); then the 19 runs once more under the profiler,
+    whose idle share is taken over the solves' own walls."""
+    import tempfile
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import run_suite_torch as runner
+
+    options = runner.solve_options(runner.parser().parse_args(
+        ["--linear-solver", linear_solver]))
+    parse_s = {}
+    with tempfile.TemporaryDirectory() as d:
+        mt.write_suite(d, size="large", seeds=(0,))
+        instances = runner.read_dir(d, parse_s=parse_s)
+
+    def run_all(per):
+        records = []
+        for name, qp in instances:
+            per[name] = {"parse_s": parse_s[name]}
+            rec = runner.run_instance(name, qp, options, stages=per[name])
+            if rec["status"] != 1:
+                raise RuntimeError(f"{name}: {rec['status']} {rec.get('status_detail')}")
+            per[name]["iters"] = rec["iter"]
+            records.append(rec)
+        return records
+
+    runner.run_instance(*instances[0], options)  # warm-up: builds the kernels
+    per = {}
+    run_all(per)
+    stages = collections.Counter()
+    for rec in per.values():
+        for key in ("parse_s", "presolve_s", "scale_s", "solve_s", "unscale_s"):
+            stages[key] += rec[key]
+    per_profiled = {}
+    records, wall, busy_us, launches, runtime_us = device_profile(
+        torch, lambda: run_all(per_profiled))
+    solve_wall = sum(rec["solve_s"] for rec in per_profiled.values())
+    return {"options": {k: v for k, v in options.items()
+                        if k not in ("step_rule", "regularization")},
+            "host_s_by_stage": dict(stages), "instances": per,
+            "profiled": summary(solve_wall, busy_us, launches, runtime_us,
+                                run_wall_ms=wall * 1e3,
+                                iters=sum(rec["iter"] for rec in records))}
+
+
 CELLS = {
     "n500_pallas": lambda torch, mt: profile_cell(
         torch, mt, (500, 200), (1, 2, 3, 1, 2, 3), linear_solver="pallas"),
@@ -252,6 +307,7 @@ CELLS = {
     "batched512_dense": lambda torch, mt: profile_batched(torch, mt, "dense"),
     "n500x4_batch_pallas": lambda torch, mt: profile_batch_n500(torch, mt),
     "two_stage_1024": lambda torch, mt: profile_two_stage(torch, mt),
+    "suite_large_pallas": lambda torch, mt: profile_suite_large(torch, mt),
 }
 
 
