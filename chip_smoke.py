@@ -97,13 +97,49 @@ Phases (each raises on failure, so any failure exits non-zero):
               against its published optima; an "error:" record
               fails, K1 (one `single` launch per factored W or S per trial)
               must run.  Prints each instance's wall and iterations/s and
-              the tier's totals.
+              the tier's totals;
+ 14. host     the host path on the card's machine (no kernel launches):
+              the native sparse LDL built from native/src/sparse_ldl.cpp
+              (madqp_tpu_torch.native.available() must hold); the corpus
+              through the runner's --backend host against its published
+              optima (the gzip file read); the large tier (seed 0, read
+              back from MPS files) through --backend host against the
+              reference runner's host_large records (iterations equal:
+              the same C++ LDL runs in both; objective within 1e-9);
+              the xlarge portfolio QP through solve_host (solved within
+              40 iterations); phase 10's batched-512 cell with
+              endgame="auto", whose float32 failures the host path
+              re-solves (the count printed; every lane held as in phase
+              10);
+ 15. sparse   the xlarge tier's members on the normal equations up to
+              dense_normal_limit (XLARGE_NORMAL: 12 LP families and svm,
+              read back from MPS files) through --backend sparse-device
+              --sparse-kkt auto: S assembled on the card and factored as
+              one dense matrix, by the panel Cholesky with K8 from m =
+              1024; in float64 against the reference runner's host_xlarge
+              records (status; iterations within 1, or within
+              MIXED_ITER_BAND for the transport family) and its
+              sparse_xlarge records of the JAX dense-normal path
+              (objective within 1e-8: on illscaled_5000_0 that path's
+              own optimum lies 2.0e-7 from the host path's), and with
+              --mixed-precision --endgame host (status; the endgame on
+              the host, svm's dense columns handing over to the host K2;
+              objective within MIXED_RTOL of the float64 host record, or
+              within twice the reference's own mixed record's distance
+              where that is larger: 3.3e-6 on blending_400_0, 6.4e-4 on
+              illscaled_5000_0); per member m, the assembly, the panel path, its K8
+              launches (counted from 0 just before the solve) and the
+              solve and endgame seconds; then gridlp_100's S assembled and
+              factored twice from one iterate, bit-equal.
+Phase 6 also holds and times K8 at every launch shape of the panel
+Cholesky of the largest m that phase 15 factors (blocked_dense.
+panel_update_shapes), in float32 and float64.
 
 Every launch counter is set to 0 just before each solve phase and read
 just after it.  The line before the last is a JSON object describing the
 kernels (times at the shape the path runs most: K1 at n = 600 float32, K8
 at (3840, 1792, 256) float32, the first and largest in-stripe update of
-the blocked cell's W, batched K1 at (512, 42) float32, W of the batched
+the blocked cell's W (its launches include phase 15's), batched K1 at (512, 42) float32, W of the batched
 cell, and the persistent K1 with a lane axis at (4, 600) float32, W of the
 n = 500 batch; the launches of K1 include phase 12's and phase 13's, those of
 K1-batched phase 12's);
@@ -112,6 +148,7 @@ Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result.
 """
 
+import collections
 import json
 import statistics
 import subprocess
@@ -217,6 +254,13 @@ MIXED_ONE_SIDED = ("transport_",)
 # (blending_120_0) from its float64 objectives, and 1.29e-5 on
 # illscaled_500_0.
 MIXED_RTOL = 1e-6
+# Phase 15: the xlarge families whose rows after presolve are at most
+# dense_normal_limit (12288), the LPs and svm (diagonal Hessian); bandedlp
+# (15000 rows) takes the supernodal path, not ported yet.
+XLARGE_NORMAL = ("transport", "multicomm", "staircase", "blending", "fixed",
+                 "assignment", "setcover", "diet", "illscaled", "redundant",
+                 "ranges", "gridlp", "svm")
+PANEL_MIN = 1024   # blocked_dense._PANEL_MIN: the panel Cholesky (K8) from here
 
 
 def phase(name):
@@ -499,7 +543,9 @@ def syrk_in_place(torch, k8, C, B, dname):
     return rel, bool(torch.equal(S, S0))
 
 
-def syrk_phase(torch, k8):
+def syrk_phase(torch, k8, normal_m):
+    """K8 at SYRK_SHAPES, one blocked-cell trial, and every launch shape
+    of the panel Cholesky of phase 15's largest S (order normal_m)."""
     from madqp_tpu_torch.ops.blocked_dense import panel_update_shapes
 
     phase("6. K8 against plain version")
@@ -555,6 +601,28 @@ def syrk_phase(torch, k8):
               f"({by}); {need / 1e9:.2f} GFLOP needed, {issued / 1e9:.2f} "
               f"GFLOP issued by the tiles, {need / trial / 1e9:.2f} TFLOP/s")
         timings[(dname, "trial")] = {"kernel": trial, "bound": bound}
+        # The dense-normal sparse LP (phase 15): each launch of one panel
+        # Cholesky of its largest normal matrix.
+        shapes = panel_update_shapes(normal_m)
+        print(f"  {dname} dense-normal path, S of order {normal_m}: "
+              f"{len(shapes)} K8 launches per factorization")
+        sums = collections.Counter()
+        for j, shape in enumerate(shapes):
+            C, B = random_syrk(torch, *shape, dtype, seed=200 + j)
+            out = k8.syrk_update(C, B)
+            plain = k8.syrk_update_reference(C, B)
+            torch.cuda.synchronize()
+            rel = float((out - plain).abs().max()) / float(plain.abs().max())
+            check(rel <= SYRK_TOL[dname],
+                  f"K8 {dname} {shape} (dense-normal) differs from plain: {rel:.3e}")
+            t = time_syrk(torch, k8, C, B, dname)
+            print(f"    rel_err={rel:.3e} (tol {SYRK_TOL[dname]:g})")
+            for key in ("kernel", "plain", "torch.addmm", "bound"):
+                sums[key] += t[key]
+        print(f"  {dname} one dense-normal factorization of order {normal_m}, K8 "
+              "summed over its launches (ms): "
+              + ", ".join(f"{k}={v:.4f}" for k, v in sums.items()))
+        timings[(dname, "normal")] = dict(sums)
     return path_err, timings
 
 
@@ -1027,6 +1095,265 @@ def pipeline_phase(mt, k1, k8, ref, smi):
     return launches
 
 
+def runner_module():
+    """tools/run_suite_torch.py of this checkout, imported."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import run_suite_torch
+
+    return run_suite_torch
+
+
+def cpu_model():
+    """The host CPU's model and core count (the host path's seconds run on
+    it): /proc/cpuinfo's model name, or its vendor, family and model
+    numbers where a machine reports no name."""
+    import os
+    import platform
+
+    fields = {}
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip().lower(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name") or " ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model") if fields.get(k))
+    return f"{model or platform.machine()}, {os.cpu_count()} cores"
+
+
+def host_phase(torch, mt, k1, k8, ref, smi):
+    """Phase 14: the host path, which launches no kernel: the native
+    library, the corpus and the large tier through the runner's --backend
+    host, the xlarge portfolio QP, and the batched-512 cell with the host
+    rescue of endgame="auto"."""
+    import tempfile
+
+    from madqp_tpu_torch import native
+    from madqp_tpu_torch.models import suite
+
+    phase("14. host path: native sparse LDL, corpus and large tier through "
+          "--backend host, portfolio xlarge, batched-512 with endgame='auto'")
+    t0 = time.perf_counter()
+    lib = native.build()
+    check(native.available(), "the native library does not load")
+    print(f"  {Path(lib).name} built and loaded in {time.perf_counter() - t0:.2f} s; "
+          f"host CPU: {cpu_model()}")
+    runner = runner_module()
+    root = Path(__file__).resolve().parent
+    fails = []
+    reset_counts(k1, k8)
+    options = runner.solve_options(runner.parser().parse_args(
+        ["--backend", "host", "--tol", "1e-9"]))
+    corpus = runner.read_dir(str(root / "tests" / "data" / "real_mm"))
+    check("HS35_gz" in dict(corpus), "the gzip file of the corpus was not read")
+    for name, qp in corpus:
+        rec = runner.run_instance(name, qp, options)
+        opt = PUBLISHED[name]
+        ok = (rec["status"] == 1
+              and abs(rec["objective"] - opt) <= max(1e-6, 1e-7 * abs(opt)))
+        print(f"  corpus {name}: {rec.get('status_detail', rec['status'])} "
+              f"iter={rec['iter']} objective={rec['objective']!r} published {opt!r} "
+              f"solve={rec['total_time']:.3f} s")
+        if not ok:
+            fails.append(f"corpus {name}: {rec['status']} {rec['objective']!r}")
+    want = ref["host_large"]
+    options = runner.solve_options(runner.parser().parse_args(["--backend", "host"]))
+    total, iters = 0.0, 0
+    with tempfile.TemporaryDirectory() as d:
+        mt.write_suite(d, size="large", seeds=(0,))
+        instances = runner.read_dir(d)
+    check(sorted(nm for nm, _ in instances) == sorted(want), "large tier names")
+    for name, qp in instances:
+        rec = runner.run_instance(name, qp, options)
+        w = want[name]
+        rel = (abs(rec["objective"] - w["objective"]) / max(abs(w["objective"]), 1.0)
+               if isinstance(rec["status"], int) else float("nan"))
+        total += max(rec["total_time"], 0.0)
+        iters += max(rec["iter"], 0)
+        print(f"  host {name}: {rec.get('status_detail', rec['status'])} iter={rec['iter']} "
+              f"(ref {w['iter']}) rel={rel:.2e} solve={rec['total_time']:.3f} s "
+              f"linear_solver={rec['linear_solver_time']}")
+        if not (rec["status"] == w["status"] and rec.get("status_detail") == w["status_detail"]
+                and rec["iter"] == w["iter"] and rel <= 1e-9):
+            fails.append(f"host {name}: {rec.get('status_detail', rec['status'])} "
+                         f"iter {rec['iter']} (ref {w['iter']}) rel {rel:.2e}")
+    print(f"  host large tier: {len(instances)} instances, {iters} iterations, "
+          f"{total:.3f} s of solves on {cpu_model()}")
+    qp = suite._MAKERS["portfolio"](*suite._DIMS["portfolio"]["xlarge"], seed=0)
+    qp_p, _, ok = mt.presolve_qp(qp)
+    check(ok, "portfolio xlarge: presolve")
+    qp_s, _ = mt.scale_qp(qp_p)
+    t0 = time.perf_counter()
+    st = mt.solve_host(qp_s, tol=1e-8, max_iter=300, max_ncorr=3,
+                       step_rule=mt.AdaptiveStep(0.995),
+                       regularization=mt.FixedRegularization(1e-8, -1e-8), print_level=40)
+    print(f"  portfolio xlarge (n = {qp.nvar}): {st.status.name} iter={st.iter} "
+          f"{time.perf_counter() - t0:.3f} s")
+    if not (st.success and st.iter <= 40):
+        fails.append(f"portfolio xlarge: {st.status.name} in {st.iter} iterations")
+    check(k1.cholesky_lower.launches == 0 and k8.syrk_update.launches == 0,
+          "the host path launched a kernel")
+    # Phase 10's cell with the default endgame: the host re-solves the
+    # lanes whose float32 phase fails.
+    qps = [mt.dense_dummy_qp(32, 16, seed=i) for i in range(BATCH)]
+    solver = mt.BatchedMPCSolver.from_problems(
+        qps, device="cuda", linear_solver="pallas", step_rule=mt.AdaptiveStep(0.995),
+        regularization=mt.FixedRegularization(1e-8, -1e-8),
+        **dict(BATCHED_OPTIONS, endgame="auto"))
+    t0 = time.perf_counter()
+    stats = solver.solve_all()
+    print(f"  batched512 endgame='auto': {len(solver._rescue_overrides)} lanes re-solved "
+          f"on the host, {time.perf_counter() - t0:.3f} s")
+    check_lanes(stats, ref["batched512"], "batched512 endgame='auto'")
+    for msg in fails:
+        print(f"  FAIL {msg}")
+    check(not fails, f"host path: {len(fails)} failures")
+
+
+def rel_err(got, want):
+    return abs(got - want) / max(abs(want), 1.0)
+
+
+def last_kkt():
+    """The KKT of the latest sparse solve: the last entry touched in the
+    pattern cache."""
+    from madqp_tpu_torch.solver import sparse_common
+
+    return next(reversed(sparse_common._KERNEL_CACHE.values()))[0]
+
+
+def sparse_phase(torch, mt, k1, k8, ref, smi):
+    """Phase 15: the xlarge tier's normal-equations members through the
+    runner's --backend sparse-device on the card, in float64 and with the
+    float32 phase and the host endgame; then the determinism of gridlp's
+    assembly and factorization.  Returns the K8 launches of the phase."""
+    import tempfile
+
+    from madqp_tpu_torch.io.mps_write import write_mps
+    from madqp_tpu_torch.ops.blocked_dense import panel_update_shapes
+    from madqp_tpu_torch.solver import sparse_lp
+
+    phase("15. sparse LP on the card: the xlarge tier's normal-equations members, "
+          "--backend sparse-device --sparse-kkt auto")
+    runner = runner_module()
+    want = ref["host_xlarge"]
+    fails, launches, egs, matmul = [], 0, {}, set()
+    # What the dense-column member hands the host endgame.
+    orig_endgame = sparse_lp._host_endgame
+
+    def spy(qp, opts, final, info, std, t0, kkt_system="k2"):
+        egs["kkt"] = kkt_system
+        return orig_endgame(qp, opts, final, info, std, t0, kkt_system=kkt_system)
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        for name, qp in mt.structured_suite("xlarge", seeds=(0,), families=XLARGE_NORMAL):
+            write_mps(qp, str(Path(d) / f"{name}.{'qps' if qp.H is not None else 'mps'}"))
+        instances = runner.read_dir(d)
+    print(f"  {len(instances)} instances written and read back in "
+          f"{time.perf_counter() - t0:.3f} s")
+    check(sorted(nm for nm, _ in instances) == sorted(want), "xlarge member names")
+    sparse_lp._host_endgame = spy
+    try:
+        for label, args in (("f64", []), ("mixed", ["--mixed-precision", "--endgame", "host"])):
+            options = runner.solve_options(runner.parser().parse_args(
+                ["--backend", "sparse-device", "--sparse-kkt", "auto"] + args))
+            mixed = bool(args)
+            for name, qp in instances:
+                w = want[name]
+                egs.clear()
+                reset_counts(k1, k8)
+                t0 = time.perf_counter()
+                rec = runner.run_instance(name, qp, options)
+                wall = time.perf_counter() - t0
+                n8 = k8.syrk_update.launches
+                launches += n8
+                kkt = last_kkt()
+                panel = kkt.m >= PANEL_MIN
+                if kkt.assembly == "matmul":
+                    matmul.add(name)
+                per = len(panel_update_shapes(kkt.m)) if panel else 0
+                if not isinstance(rec["status"], int):
+                    fails.append(f"{label} {name}: record {rec['status']}")
+                    continue
+                dense = ref["sparse_xlarge"][name]
+                rel = rel_err(rec["objective"], w["objective"])     # the host record
+                rel_dense = rel_err(rec["objective"], dense[label]["objective"])
+                gap = rec["iter"] - w["iter"]
+                band = MIXED_ITER_BAND if name.startswith(MIXED_ONE_SIDED) else 1
+                # the float64 bound: the reference's own dense-normal record
+                # (1e-8); the float32 phase: the float64 host record, within
+                # MIXED_RTOL or twice the reference's own mixed distance
+                bound = (max(MIXED_RTOL, 2 * rel_err(dense["mixed"]["objective"],
+                                                     w["objective"]))
+                         if mixed else 1e-8)
+                print(f"  {label} {name}: m={kkt.m} (ref {w['m']}) assembly={kkt.assembly} "
+                      f"panel={panel} {rec.get('status_detail')} iter={rec['iter']} "
+                      f"(host ref {w['iter']}, dense-normal ref {dense[label]['iter']}) "
+                      f"rel={rel:.2e} to the host record, {rel_dense:.2e} to the "
+                      f"dense-normal record (bound {bound:.1e}) K8 launches {n8} "
+                      f"({per} per factorization) solve={rec['total_time']:.3f} s "
+                      f"endgame={rec.get('endgame_backend', '-')} "
+                      f"{rec.get('endgame_time', 0.0):.3f} s wall={wall:.3f} s", flush=True)
+                ok = (rec["status"] == 1 and kkt.m == w["m"]
+                      and (rel if mixed else rel_dense) <= bound
+                      and (mixed or abs(gap) <= band)
+                      and k1.cholesky_lower.launches == 0
+                      and (n8 > 0 and n8 % per == 0 if panel else n8 == 0))
+                if mixed:
+                    ok = ok and rec.get("endgame_backend") in ("host", "host-cold")
+                    if kkt.assembly == "matmul":
+                        ok = ok and egs.get("kkt") == "k2"
+                    print(f"    endgame system: host {egs.get('kkt')}")
+                elif panel:
+                    ok = ok and n8 >= per * rec["iter"]
+                if not ok:
+                    fails.append(f"{label} {name}: {rec.get('status_detail')} iter "
+                                 f"{rec['iter']} (ref {w['iter']}) rel {rel:.2e} K8 {n8} "
+                                 f"m {kkt.m} endgame {rec.get('endgame_backend')} "
+                                 f"{egs.get('kkt')}")
+    finally:
+        sparse_lp._host_endgame = orig_endgame
+    print(f"  matmul assembly (dense columns; the host K2 endgame): {sorted(matmul)}")
+    check("svm_3000x200_0" in matmul, "svm's dense columns did not take the matmul assembly")
+    determinism_check(torch, mt, dict(instances)["gridlp_100_0"])
+    for msg in fails:
+        print(f"  FAIL {msg}")
+    check(not fails, f"sparse LP: {len(fails)} failures")
+    return launches
+
+
+def determinism_check(torch, mt, qp):
+    """gridlp_100's normal matrix assembled and factored twice from one
+    iterate (a seeded Σ, δ_c = -1e-8) on the card: the factor, its inverse
+    and the scale bit-equal; seconds of one assembly + factorization."""
+    from madqp_tpu_torch.solver.sparse_lp import DeviceSparseNormalKKT, make_problem
+
+    qp_s, _ = mt.scale_qp(mt.presolve_qp(qp)[0])
+    std = mt.build_standard_form_sparse(qp_s)[0]
+    t0 = time.perf_counter()
+    kkt = DeviceSparseNormalKKT(std.A)
+    symbolic = time.perf_counter() - t0
+    prob = make_problem(std, kkt, torch.float64, "cuda")
+    rng = np.random.default_rng(0)
+    pr = torch.as_tensor(rng.uniform(0.5, 2.0, std.n), device="cuda")
+    del_c = torch.tensor(-1e-8, dtype=torch.float64, device="cuda")
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (L, iL), _, scale, _, _ = kkt.factorize(prob, pr, del_c)
+        torch.cuda.synchronize()
+        runs.append(((L, iL, scale), time.perf_counter() - t0))
+    (a, t_a), (b, t_b) = runs
+    same = all(bool(torch.equal(u, v)) for u, v in zip(a, b))
+    print(f"  gridlp_100 S (m = {kkt.m}, {kkt.assembly}, {kkt.npairs} pairs): host "
+          f"symbolic {symbolic:.3f} s; assembled and factored twice in {t_a:.3f} s and "
+          f"{t_b:.3f} s; factor, inverse and scale bit-equal: {same}")
+    check(same, "gridlp_100: two assemblies and factorizations differ")
+
+
 def main():
     import torch
 
@@ -1045,7 +1372,9 @@ def main():
     k1_err, k1_times = kernel_phase(torch, k1)
     k1_launches, k1_fact = main_path_phase(mt, k1, k8, ref)
     large_phase(mt, k1, ref)
-    k8_err, k8_times = syrk_phase(torch, k8)
+    # the largest normal matrix phase 15 factors (rows after presolve)
+    normal_m = max(rec["m"] for rec in ref["host_xlarge"].values())
+    k8_err, k8_times = syrk_phase(torch, k8, normal_m)
     k8_launches, k8_fact = blocked_phase(torch, mt, k1, k8, ref)
     variants_phase(mt, k1, k8, ref)
     kb_err, kl_err, kb_times = batched_kernel_phase(torch, k1)
@@ -1053,6 +1382,8 @@ def main():
     layer_phase(torch, mt, k1, k8, ref)
     ts_single, ts_batched = two_stage_phase(torch, mt, k1, k8, ref)
     pipe_launches = pipeline_phase(mt, k1, k8, ref, smi)
+    host_phase(torch, mt, k1, k8, ref, smi)
+    sparse_launches = sparse_phase(torch, mt, k1, k8, ref, smi)
 
     t600 = k1_times[("float32", 600)]
     t8 = k8_times[("float32", (3840, 1792, 256))]
@@ -1076,7 +1407,7 @@ def main():
         "route": "cuda",
         "source": "madqp_tpu_torch/csrc/syrk.cu",
         "replaces": "benchmarks/exp_pallas_rl_chol.py:120",
-        "launches": k8_launches,
+        "launches": k8_launches + sparse_launches,
         "max_abs_err": k8_err,
         "ms": t8["kernel"],
         "plain_ms": t8["plain"],

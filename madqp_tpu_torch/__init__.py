@@ -10,12 +10,16 @@ Schur-complement KKT (`solve_two_stage`); and the differentiable QP layer
 MPS → presolve → Ruiz scaling pipeline (`read_mps`, `presolve_qp`,
 `scale_qp`, `unscale_stats`, NumPy and SciPy as in the reference) with the
 structured suite (`structured_suite`, `write_suite`) that
-`tools/run_suite_torch.py` drives.
+`tools/run_suite_torch.py` drives; the host path (`solve_host`,
+`HostMPCSolver`: CPU tensors, SciPy matvecs and the native sparse LDL of
+`native/src/sparse_ldl.cpp`, bound by `madqp_tpu_torch.native`); and the
+sparse LP on the device (`solve_sparse_lp`, `solve_sparse_qp`: the normal
+equations assembled on the card and factored as one dense matrix).
 The reference's Pallas kernels are hand-written CUDA kernels here: the
 Cholesky (K1: `ops/pallas_chol.py`, `csrc/cholesky.cu`), selected with
 `linear_solver="pallas"`, and the rank-k update (K8: `ops/syrk.py`,
 `csrc/syrk.cu`), the trailing update of the panel Cholesky behind
-`linear_solver="blocked"`.  On a stack of matrices (a batch, or the
+`linear_solver="blocked"` and the sparse LP's normal matrices.  On a stack of matrices (a batch, or the
 two-stage scenarios) K1 factors every matrix in one launch
 (`csrc/cholesky_batched.cu`).
 
@@ -69,7 +73,15 @@ from .models import (
     write_suite,
 )
 from .io import read_mps, parse_mps, write_mps
-from .solver import MPCSolver, solve, autosolve
+from .solver import (
+    MPCSolver,
+    solve,
+    autosolve,
+    HostMPCSolver,
+    solve_host,
+    solve_sparse_lp,
+    solve_sparse_qp,
+)
 from .parallel import (
     BatchedMPCSolver,
     solve_batched,
@@ -131,6 +143,10 @@ __all__ = [
     "MPCSolver",
     "solve",
     "autosolve",
+    "HostMPCSolver",
+    "solve_host",
+    "solve_sparse_lp",
+    "solve_sparse_qp",
     "BatchedMPCSolver",
     "solve_batched",
     "TwoStageProblem",

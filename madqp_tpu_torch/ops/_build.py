@@ -1,8 +1,11 @@
-"""Build and load the hand-written CUDA kernels of `csrc/`.
+"""Build and load the hand-written CUDA kernels of `csrc/` and the host's
+native sparse LDL.
 
 Each `csrc/*.cu` file has a plain C interface and is compiled on its own
 with `nvcc` into a shared library under `madqp_tpu_torch/_build/`, at first
-use, and loaded with ctypes.  The library's name carries a hash of the
+use, and loaded with ctypes.  A C++ source (`.cpp`: the repository's
+`native/src/sparse_ldl.cpp`, which `madqp_tpu_torch.native` binds) goes
+through the host compiler (`g++`, GXX_FLAGS) the same way.  The library's name carries a hash of the
 source, of every `csrc/` header it includes (`#include "name.cuh"`,
 followed through the headers), and of the flags, so an edited source or
 header is rebuilt and a stale library is never loaded.  The flags are
@@ -28,6 +31,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: dict = {}  # source path -> ctypes.CDLL, loaded once per process
@@ -49,6 +53,20 @@ def nvcc() -> str:
         f"{CSRC_DIR} at first use (set CUDA_HOME or put nvcc on PATH)")
 
 
+def gxx() -> str:
+    """Path of g++ on PATH, the host compiler of the `.cpp` sources."""
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError(
+            "g++ not found: the native sparse LDL is compiled from "
+            "native/src/sparse_ldl.cpp at first use (put g++ on PATH)")
+    return path
+
+
+def _flags(source: Path) -> tuple:
+    return GXX_FLAGS if source.suffix == ".cpp" else NVCC_FLAGS
+
+
 def sources(source: Path) -> list:
     """`source` and every header beside it that it includes, directly or
     through another header, in the order first met."""
@@ -67,7 +85,7 @@ def library_path(source: Path) -> Path:
     key = hashlib.sha256()
     for path in sources(source):
         key.update(path.name.encode() + b"\0" + path.read_bytes())
-    key.update(" ".join(NVCC_FLAGS).encode())
+    key.update(" ".join(_flags(source)).encode())
     return BUILD_DIR / f"libmadqp_{source.stem}_{key.hexdigest()[:16]}.so"
 
 
@@ -79,7 +97,8 @@ def build_log(source: Path) -> str:
 
 
 def build(source: Path) -> Path:
-    """Compile `source` with NVCC_FLAGS into BUILD_DIR (skipped when the
+    """Compile `source` (nvcc with NVCC_FLAGS, or g++ with GXX_FLAGS for a
+    `.cpp`) into BUILD_DIR (skipped when the
     library for this source already exists).  The library is written
     under a temporary name and renamed, so a concurrent or interrupted
     build never leaves a partial file under the final name."""
@@ -89,12 +108,13 @@ def build(source: Path) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
+    compiler = gxx() if source.suffix == ".cpp" else nvcc()
+    cmd = [compiler, *_flags(source), "-o", tmp, str(source)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{Path(compiler).name} failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                 f"{proc.stdout}{proc.stderr}")
         out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)

@@ -32,8 +32,9 @@ differ in conditioning and cost:
   * K2_5      — K2 with symmetric Jacobi scaling.
   * SCHUR     — the two-stage block-angular system
     (`parallel/structured.py::SchurKKT`, with `TwoStageProblem` only).
-The sparse formulations are not ported yet: `make_kkt` raises
-`NotImplementedError` naming the ROADMAP.md item that ports them.
+The sparse supernodal formulations of `MPCSolver` are not ported yet:
+`make_kkt` raises `NotImplementedError` naming the ROADMAP.md item that
+ports them (the dense-normal sparse LP is `solver/sparse_lp.py`).
 
 A batch of problems (leading lane axis on every tensor: `prob.A` (B, m, n),
 `pr_diag` (B, n), `del_c` (B,)) factors through the condensed and normal
@@ -451,8 +452,8 @@ _KKT_REGISTRY = {
 # Formulations the reference package has and this package does not yet,
 # with the ROADMAP.md item that ports each.
 _NOT_PORTED = {
-    "sparse-normal": "Queue 1, item 13",
-    "sparse-augmented": "Queue 1, item 13",
+    "sparse-normal": "Queue 1, item 13 step 2",     # supernodal normal equations
+    "sparse-augmented": "Queue 1, item 13 step 3",  # supernodal signed LDL^T
 }
 
 

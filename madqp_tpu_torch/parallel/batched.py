@@ -10,15 +10,16 @@ NumPy) and stacked on the device with a leading lane axis; the lane-masked
     the Schur complement stays nonsingular;
   * convergence masking: lanes whose status leaves RUNNING stop updating
     while the rest iterate (`run_lanes`, the counterpart of the reference's
-    vmapped `lax.while_loop`), with one host sync per iteration.
+    vmapped `lax.while_loop`), with one host sync per iteration;
+  * the mixed-precision rescue of the lanes whose float32 phase fails: with
+    `endgame="auto"` or `"host"` and the native library, each such lane is
+    re-solved on the host path (`HostMPCSolver`, cold), and `solve_all`
+    returns the host's stats for it; `endgame="f64"` (or no native
+    library) runs a warm float64 phase of the failed lanes on the card.
 
 Where this differs from the reference:
   * `mesh=` (sharding the lanes over devices) raises `NotImplementedError`:
     one card here; ROADMAP.md Queue 1, item 17 brings `torch.distributed`.
-  * The host rescue of the mixed-precision scheme needs the host solver
-    (ROADMAP.md Queue 1, item 12): `endgame="host"` raises, and
-    `endgame="auto"` takes the device rescue, as the reference does when
-    its native library is missing.
   * `loop_mode` is accepted and has no effect: the loop is always stepped
     on the host, so the reference's chunked dispatch has no counterpart.
 """
@@ -50,7 +51,6 @@ _STATUS_MAP = {
 }
 
 MESH_ITEM = "Queue 1, item 17"   # lanes sharded over cards
-HOST_ITEM = "Queue 1, item 12"   # the host path behind endgame="host"
 
 
 def pad_standard(
@@ -141,10 +141,6 @@ class BatchedMPCSolver:
                 "mesh=: sharding the batch over several devices is not ported "
                 f"yet (ROADMAP.md {MESH_ITEM}, torch.distributed)")
         opts, _ = load_options(**options)
-        if opts.endgame == "host":
-            raise NotImplementedError(
-                "endgame='host': the host rescue needs the host solver, which is "
-                f"not ported yet (ROADMAP.md {HOST_ITEM})")
         device = torch.device(device)
         if device.type == "cuda":
             # Full-f32 products: the float32 factorization's accuracy rests
@@ -208,8 +204,27 @@ class BatchedMPCSolver:
         self._phase2 = BatchedMPCKernel(
             dataclasses.replace(opts, factorization_dtype=""))
 
+    def _host_rescue(self, bad):
+        """Re-solve the lanes `bad` one by one on the host path (the
+        reference's options, no banners); `solve_all` returns these stats
+        for them."""
+        from ..solver.host import HostMPCSolver
+
+        o = self.opts
+        for i in sorted(set(int(i) for i in bad)):
+            host = HostMPCSolver(
+                self.qps[i], tol=o.tol, max_iter=o.max_iter,
+                max_ncorr=o.max_ncorr, step_rule=o.step_rule,
+                regularization=o.regularization, scaling=o.scaling,
+                max_gradient=o.max_gradient, barrier_gate=o.barrier_gate,
+                mu_min=o.mu_min, bound_push=o.bound_push, bound_fac=o.bound_fac,
+                bound_relax_factor=o.bound_relax_factor,
+                print_level=max(o.print_level, 30))
+            self._rescue_overrides[i] = host.solve()
+
     def _solve(self, prob: ProblemArrays) -> IPMState:
         kern, kern2 = self._kernel, self._phase2
+        self._rescue_overrides = {}
         f1 = run_lanes(kern, prob, kern.init_state(prob, self.x0, self.y0,
                                                    self.lb, self.ub))
         if kern2 is None:
@@ -218,6 +233,13 @@ class BatchedMPCSolver:
         bad = np.flatnonzero(statuses != S.SUCCESS)
         if bad.size == 0:
             return f1
+        if self.opts.endgame in ("auto", "host"):
+            from ..native import available
+
+            if available():
+                # The device state keeps the failed lanes' phase-1 result.
+                self._host_rescue(bad)
+                return f1
         if bad.size > statuses.size // 2:
             # Mostly-failed batches keep the full-width lockstep rescue.
             f2 = run_lanes(kern2, prob, kern2.init_state_warm(
@@ -250,7 +272,8 @@ class BatchedMPCSolver:
         return final
 
     def solve_all(self) -> List[ExecutionStats]:
-        """Solve and unpack per-instance ExecutionStats."""
+        """Solve and unpack per-instance ExecutionStats (a host-rescued
+        lane's are the host solver's, in user coordinates)."""
         t0 = time.time()
         final = self.solve_batch()
         wall = time.time() - t0
@@ -258,6 +281,9 @@ class BatchedMPCSolver:
                 for name, v in final._asdict().items() if name != "d"}
         out = []
         for i in range(self.n_real):
+            if i in self._rescue_overrides:
+                out.append(self._rescue_overrides[i])
+                continue
             info = self.infos[i]
             qp = self.qps[i]
             x_int = np.asarray(host["x"][i], dtype=np.float64)[: info.n]

@@ -16,7 +16,8 @@ follows only when it exits unconverged.
 
 `pad_mode="bucket"` pads the standard form to power-of-two shape buckets
 (`parallel.pad_standard`); `autosolve` routes a problem by its shape to the
-dense path, with the blocked backend for large dense problems.
+dense path, with the blocked backend for large dense problems, or to the
+sparse device paths.
 """
 
 from __future__ import annotations
@@ -488,9 +489,10 @@ def autosolve(qp: QuadraticProblem, *, device="cuda", dense_limit: int = 1500,
       bucket-padded dense path (`solve`), with the blocked backend (panel
       Cholesky with K8 trailing updates, inverse factors, matvec
       backsolves) once the internal dimension reaches 2048;
-    - large + sparse -> the sparse device paths, which are not ported yet
-      (ROADMAP.md Queue 1, item 13): this raises rather than sending the
-      problem down the dense route.
+    - large + sparse -> the sparse device paths with `kkt_system="auto"`
+      (`solve_sparse_qp`): an LP or a diagonal-Hessian QP takes the normal
+      equations; a general Hessian raises there, naming the ROADMAP.md
+      item that ports its system.
     """
     m, n = qp.A.shape
     # internal dimension after slacking every range/inequality row
@@ -503,8 +505,7 @@ def autosolve(qp: QuadraticProblem, *, device="cuda", dense_limit: int = 1500,
         if internal >= 2048:
             kwargs.setdefault("linear_solver", "blocked")
         return solve(qp, device=device, **kwargs)
-    raise NotImplementedError(
-        f"autosolve routes this large sparse problem (n={n}, m={m}, "
-        f"A density {density:.2g}) to the sparse device paths, which are not "
-        "ported yet (ROADMAP.md Queue 1, item 13); call solve() to run it "
-        "on the dense path")
+    from .sparse_qp import solve_sparse_qp
+
+    kwargs.pop("pad_mode", None)
+    return solve_sparse_qp(qp, kkt_system="auto", device=device, **kwargs)

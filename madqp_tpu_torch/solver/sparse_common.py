@@ -1,0 +1,203 @@
+"""Shared infrastructure of the sparse device paths (port of
+`madqp_tpu/solver/sparse_common.py`).
+
+- `canonical_csc(M)`: the ONE canonicalization that the KKT constructors
+  and value refills share (CSC, summed duplicates, sorted indices);
+- `pattern_fingerprint(...)`: sha1 over shapes and index structure, the
+  cache key for "same sparsity, different values";
+- `get_sparse_kernel(...)`: an LRU of (KKT, MPCKernel) keyed by (kind,
+  fingerprint, options), so repeated solves of problems with one pattern
+  reuse the KKT's symbolic work (its contribution lists);
+- `stepped_solve`: the host-stepped MPC loop of the sparse drivers;
+- `resolve_endgame`, `two_phase_opts`, `measure_sparse_ls`: the two-phase
+  scheme's option split and the post-solve linear-solver timing.
+
+The JAX package's executable cache and its compile plumbing
+(`_exec_cache_dir`, `_exec_cache_key`, `_load_or_compile`,
+`chunked_solve`, `dense_chunk_len`, `start_phase2_overlap`) have no
+counterpart: the port compiles nothing per pattern, and its loop is always
+stepped on the host (`chunked_solve` dispatched bounded chunks of the same
+terminal-safe iteration, so the iterates are those of `stepped_solve`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import time
+from collections import OrderedDict
+from typing import Optional
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ..ops import kernels as K
+from . import state as S
+from .mpc import MPCKernel
+
+
+def canonical_csc(M: sp.spmatrix) -> sp.csc_matrix:
+    """Canonical CSC form: duplicates summed, indices sorted.  COO export
+    of this form (column-major) is the value order every sparse-KKT
+    consumer assumes."""
+    M = sp.csc_matrix(M)
+    M.sum_duplicates()
+    return M.sorted_indices()
+
+
+def canonical_coo_vals(M: sp.spmatrix) -> np.ndarray:
+    """Values of canonical_csc(M) in its COO (column-major) order."""
+    return canonical_csc(M).tocoo().data.copy()
+
+
+def pattern_fingerprint(A: sp.spmatrix,
+                        H: Optional[sp.spmatrix] = None) -> str:
+    """sha1 of the sparsity structure (not values) of A (and H)."""
+    h = hashlib.sha1()
+    for M in (A, H):
+        if M is None:
+            h.update(b"none")
+            continue
+        M = canonical_csc(M)
+        h.update(np.asarray(M.shape, np.int64).tobytes())
+        h.update(M.indptr.astype(np.int64).tobytes())
+        h.update(M.indices.astype(np.int64).tobytes())
+    return h.hexdigest()
+
+
+def segments(index: np.ndarray, size: int):
+    """(order, lengths) for a deterministic segment sum by `index`: a stable
+    sort of the entries by segment, and the entry count of each of the
+    `size` segments.  `segment_sum(v, lengths, order)` then adds each
+    segment's entries in their original order (as the JAX package's
+    scatter-add on the CPU does); on the card it needs no atomics, so two
+    runs give the same bits."""
+    index = np.asarray(index, np.int64)
+    order = np.argsort(index, kind="stable")
+    return order, np.bincount(index, minlength=size)
+
+
+def segment_sum(values: torch.Tensor, lengths: torch.Tensor,
+                order: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum of `values` by segment, through `segments`' (order, lengths) as
+    tensors on the values' device (order None: `values` is already in
+    segment order); an empty segment gives 0."""
+    if values.shape[0] == 0:
+        return values.new_zeros(lengths.shape[0])
+    if order is not None:
+        values = values[order]
+    return torch.segment_reduce(values, "sum", lengths=lengths)
+
+
+_KERNEL_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_KERNEL_CACHE_SIZE = 16  # each entry holds a KKT's symbolic lists (MBs)
+
+
+def get_sparse_kernel(kind: str, fingerprint: str, opts, make_kkt):
+    """Return (kkt, kernel) for this (kind, pattern, options), building the
+    KKT with make_kkt() on a miss.  The KKT keeps its symbolic index lists
+    (host arrays, and a copy per device made at first use), so a problem
+    with the same sparsity and other values skips the symbolic work."""
+    key = (kind, fingerprint, opts)
+    hit = _KERNEL_CACHE.get(key)
+    if hit is not None:
+        _KERNEL_CACHE.move_to_end(key)
+        return hit
+    kkt = make_kkt()
+    hit = (kkt, MPCKernel(opts, kkt=kkt))
+    _KERNEL_CACHE[key] = hit
+    while len(_KERNEL_CACHE) > _KERNEL_CACHE_SIZE:
+        _KERNEL_CACHE.popitem(last=False)
+    return hit
+
+
+def stepped_solve(kernel, prob, x0, y0, lb, ub, warm=None):
+    """Host-stepped solve: `kernel.iteration` until the status leaves
+    RUNNING (the JAX package's stepped and chunked loops dispatch the same
+    terminal-safe iteration).  `warm` = (zl0, zu0) starts from the given
+    point (`init_state_warm`)."""
+    if warm is not None:
+        state = kernel.init_state_warm(prob, x0, y0, *warm, lb, ub)
+    else:
+        state = kernel.init_state(prob, x0, y0, lb, ub)
+    while state.status == S.RUNNING:
+        state = kernel.iteration(prob, state)
+    return state
+
+
+def resolve_endgame(opts):
+    """Resolve endgame='auto' for the sparse device drivers: 'host' when
+    the native C++ LDL library builds and loads, else 'f64' (the JAX
+    package's rule)."""
+    if opts.endgame != "auto":
+        return opts
+    from ..native import available
+
+    return dataclasses.replace(opts, endgame="host" if available() else "f64")
+
+
+def two_phase_opts(opts, typed_phase1=False):
+    """Split options for the two-phase mixed-precision scheme.
+
+    typed_phase1: honor options.phase1_dtype for the phase-1 state (the
+    caller then builds the problem arrays per phase and casts the warm
+    start on handoff, as solver/sparse_lp.py does).
+
+    Phase 1 (float32): solve to phase1_tol with stall detection on (a
+    float32 kernel at its precision floor burns iterations and degrades
+    the warm start it hands over).  Phase 2 (float64): the phase-1-only
+    fields are normalized away."""
+    opts1 = dataclasses.replace(
+        opts, tol=opts.phase1_tol,
+        stall_exit=opts.stall_exit if opts.stall_exit > 0 else 5,
+        max_iter=min(opts.max_iter, opts.phase1_max_iter),
+        dtype=(opts.phase1_dtype or opts.dtype) if typed_phase1
+        else opts.dtype,
+    )
+    if opts.endgame == "krylov":
+        opts2 = dataclasses.replace(opts, phase1_tol=0.0, krylov_solve=True)
+    else:
+        opts2 = dataclasses.replace(opts, factorization_dtype="",
+                                    phase1_tol=0.0)
+    return opts1, opts2
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def measure_sparse_ls(kkt, prob, final, lb, ub, reps=3):
+    """Measured cumulative factorize + backsolve seconds at the terminal
+    iterate, scaled by the recorded counts (reference
+    linear_solver_time, scripts/benchmarks_cpu.jl:55): one factorization
+    and one backsolve at the final state, best of `reps` after a warm-up
+    (the iterate perturbed per rep), times final.n_fact / final.n_solve.
+    For a two-phase solve call it once per phase and sum."""
+    device = final.x.device
+    eps = 10.0 * float(torch.finfo(final.x.dtype).eps)
+
+    def best_of(fn):
+        best, out = float("inf"), None
+        for i in range(reps + 1):  # rep 0 is the warm-up
+            _sync(device)
+            t0 = time.perf_counter()
+            out = fn(i)
+            _sync(device)
+            if i > 0:
+                best = min(best, time.perf_counter() - t0)
+        return best, out
+
+    def fact(i):
+        x = final.x * (1.0 + eps * i)
+        pr = K.sigma_diagonal(x, lb, ub, prob.has_lb, prob.has_ub,
+                              final.zl, final.zu, final.del_w)
+        f = kkt.factorize(prob, pr, final.del_c)
+        kkt.factor_ok(f)
+        return f
+
+    t_fact, factors = best_of(fact)
+    t_solve, _ = best_of(lambda i: kkt.solve(factors, final.x * (1.0 + eps * i),
+                                             final.y))
+    return t_fact * int(final.n_fact) + t_solve * int(final.n_solve)

@@ -1,0 +1,406 @@
+"""The sparse LP path on the device: COO matvecs and the normal equations
+(port of `madqp_tpu/solver/sparse_lp.py`, its dense-normal mode).
+
+The LP's Jacobian stays sparse on the device (COO, segment-sum matvecs);
+the normal matrix S = A D A' − δ_c I is assembled there every iteration
+and factored as one dense (m, m) matrix by `ops/blocked_dense.py::
+factor_inv_chol`: for m >= 1024 the panel Cholesky, whose trailing updates
+are the hand-written K8 (`ops/syrk.py`, `csrc/syrk.cu`), and the inverse
+factor, so each backsolve is two matvecs.  Two assemblies, chosen once per
+pattern as in the JAX package:
+
+  * "pairs": host-precomputed contribution lists (every pair of rows
+    sharing a column of A), a segment sum into S's upper pattern, the
+    −δ_c diagonal, symmetric Jacobi scaling to unit diagonal, and a
+    scatter into the dense matrix;
+  * "matmul": for A with dense columns, whose pair lists would explode,
+    A scattered into a dense (m, n) matrix and S = (A D) A' as one product.
+
+Every sum is deterministic on the card: the pair lists are sorted by
+their target entry once, at symbolic time, and reduced with a sorted
+segment reduction; the scatters write unique entries.
+
+Not ported yet (they raise `NotImplementedError` naming the ROADMAP.md
+item): the supernodal modes ("batched", "scan", and "auto" above
+`dense_normal_limit`: Queue 1 item 13 step 2) and the krylov endgame
+(`endgame="krylov"`, `krylov_solve`: item 15, `ops/krylov.py::pcg`).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ..models.qp import QuadraticProblem, build_standard_form_sparse
+from ..ops.blocked_dense import factor_inv_chol
+from ..ops.kkt import torch_dtype
+from ..utils import load_options
+from .sparse_common import (canonical_coo_vals, canonical_csc, get_sparse_kernel,
+                            measure_sparse_ls, pattern_fingerprint, resolve_endgame,
+                            segment_sum, segments, stepped_solve, two_phase_opts)
+from .sparse_qp import SparseQPProblem, _host_endgame, finish_stats
+
+SUPERNODAL_ITEM = "Queue 1, item 13 step 2"   # supernodal normal equations
+KRYLOV_ITEM = "Queue 1, item 15"              # ops/krylov.py::pcg
+
+
+class SparseLPProblem(NamedTuple):
+    """LP data with a COO Jacobian on the device (the protocol of
+    `solver/state.py::ProblemArrays`; `H` is absent).
+
+    `a_row_order` / `a_row_len` and `a_col_order` / `a_col_len` are the
+    (order, lengths) of `sparse_common.segments` for the row and column
+    sums of the matvecs."""
+
+    c0: torch.Tensor
+    c: torch.Tensor
+    b: torch.Tensor
+    has_lb: torch.Tensor
+    has_ub: torch.Tensor
+    a_rows: torch.Tensor   # (nnz,) int64
+    a_cols: torch.Tensor   # (nnz,) int64
+    a_vals: torch.Tensor   # (nnz,)
+    a_row_order: torch.Tensor
+    a_row_len: torch.Tensor
+    a_col_order: torch.Tensor
+    a_col_len: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return self.c.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.b.shape[0]
+
+    @property
+    def is_lp(self) -> bool:
+        return True
+
+    @property
+    def H(self):
+        return None
+
+    def hess_mv(self, x):
+        return torch.zeros_like(x)
+
+    def jac_mv(self, x):
+        return segment_sum(self.a_vals * x[self.a_cols], self.a_row_len,
+                           self.a_row_order)
+
+    def jac_rmv(self, y):
+        return segment_sum(self.a_vals * y[self.a_rows], self.a_col_len,
+                           self.a_col_order)
+
+
+def coo_fields(rows, cols, vals, m, n, dtype, device) -> dict:
+    """The COO fields of an (m, n) matrix of a sparse problem (A's or H's:
+    the caller prefixes the names) with the segment orders of its row and
+    column sums."""
+    def idx(v):
+        return torch.as_tensor(np.asarray(v, np.int64), device=device)
+
+    row_order, row_len = segments(rows, m)
+    col_order, col_len = segments(cols, n)
+    return dict(rows=idx(rows), cols=idx(cols),
+                vals=torch.as_tensor(vals, dtype=dtype, device=device),
+                row_order=idx(row_order), row_len=idx(row_len),
+                col_order=idx(col_order), col_len=idx(col_len))
+
+
+def _pair_lists(A: sp.csc_matrix, S_up: sp.csc_matrix):
+    """Contribution lists of S = A D A' (lower triangle): for column k of A
+    with rows R_k, every pair (i, j) in R_k x R_k with i >= j adds
+    A_ik D_k A_jk to S_ij, stored at the upper entry (j, i) of S_up's CSC
+    value array.  Returns (pair_p, pair_q, pair_k, pair_e) in the JAX
+    package's order (column k, then entry a, then entry bq <= a), built
+    with NumPy instead of its Python loops."""
+    m = A.shape[0]
+    indptr, indices = A.indptr.astype(np.int64), A.indices.astype(np.int64)
+    nnz = indices.shape[0]
+    col = np.repeat(np.arange(A.shape[1], dtype=np.int64), np.diff(indptr))
+    lo = indptr[col]                       # first entry of each entry's column
+    reps = np.arange(nnz, dtype=np.int64) - lo + 1   # partners bq in lo..a
+    pair_p = np.repeat(np.arange(nnz, dtype=np.int64), reps)
+    start = np.repeat(np.cumsum(reps) - reps, reps)
+    pair_q = np.repeat(lo, reps) + (np.arange(pair_p.shape[0], dtype=np.int64) - start)
+    pair_k = col[pair_p]
+    # upper entry (row jb, column ia) of S_up: position by (column, row) key
+    up_col = np.repeat(np.arange(m, dtype=np.int64), np.diff(S_up.indptr))
+    keys = up_col * m + S_up.indices.astype(np.int64)
+    pair_e = np.searchsorted(keys, indices[pair_p] * m + indices[pair_q])
+    return pair_p, pair_q, pair_k, pair_e
+
+
+class DeviceSparseNormalKKT:
+    """Normal-equations KKT with assembly on the device and one dense
+    factorization (the JAX package's `mode="dense"`).
+
+    Beyond the reference's NormalKKTSystem (LP only, normalkkt.jl:45-48),
+    separable QPs (diagonal Hessian) keep W = H + Σ diagonal, so the same
+    SPD reduction S = A W⁻¹ Aᵀ − δ_c I applies; the diagonal Hessian comes
+    in through the problem arrays (`prob.h_vals` with h_rows == h_cols)."""
+
+    name = "sparse-normal(device)"
+
+    def __init__(self, A: sp.spmatrix, mode: str = "dense", fact_dtype=None,
+                 krylov: bool = False):
+        if mode != "dense":
+            raise NotImplementedError(
+                f"solve_sparse_lp mode={mode!r} (the supernodal normal equations) is "
+                f"not ported yet (ROADMAP.md {SUPERNODAL_ITEM}); mode='dense' is")
+        if krylov:
+            raise NotImplementedError(
+                "the krylov endgame (preconditioned CG on the normal equations) is "
+                f"not ported yet (ROADMAP.md {KRYLOV_ITEM})")
+        self.fact_dtype = torch_dtype(fact_dtype) if fact_dtype else None
+        self.mode = mode
+        A = sp.csc_matrix(A)
+        A.sum_duplicates()
+        A = A.sorted_indices()
+        m, n = A.shape
+        self.m, self.n = m, n
+        # Canonical nonzero ordering: the pair indices below address A's
+        # CSC data array, so the problem's (a_rows, a_cols, a_vals) must be
+        # built from these arrays (std.A is CSR: its COO order is
+        # row-major).
+        Acoo = A.tocoo()
+        self.coo_rows = Acoo.row.astype(np.int64)
+        self.coo_cols = Acoo.col.astype(np.int64)
+        self.coo_vals = Acoo.data.copy()
+        self._device_idx: dict = {}
+
+        # Assembly route: the pair lists cost sum_k nnz(col_k)^2 host work
+        # and memory; an A with dense columns (the svm family: 200 columns
+        # x 3000 rows) explodes them, and the dense (m, n) product is
+        # cheaper whenever it is affordable and the pair count dwarfs it.
+        col_nnz = np.diff(A.indptr)
+        npairs = int(np.sum(col_nnz.astype(np.int64) ** 2 + col_nnz) // 2)
+        self.npairs = npairs
+        if m * n <= int(2e8) and (npairs > int(2e7) or npairs > 4 * m * n):
+            self.assembly = "matmul"
+            return
+        self.assembly = "pairs"
+
+        # Pattern of S = A A' (+ the diagonal for the -del_c term), and its
+        # upper triangle in CSC: the value array the lists address.
+        Abool = A.copy()
+        Abool.data = np.ones_like(Abool.data)
+        S_pat = (Abool @ Abool.T + sp.eye(m)).tocsc().sorted_indices()
+        S_up = sp.triu(S_pat.tocsr(), k=0, format="csc").sorted_indices()
+        self.pair_p, self.pair_q, self.pair_k, self.pair_e = _pair_lists(A, S_up)
+        self.nnz_up = int(S_up.nnz)
+        # (row, col) of every upper entry, for the Jacobi scaling and the
+        # scatter into the dense matrix; the diagonal's positions.
+        self.entry_row = S_up.indices.astype(np.int64)
+        self.entry_col = np.repeat(np.arange(m, dtype=np.int64), np.diff(S_up.indptr))
+        self.diag_pos = np.flatnonzero(self.entry_row == self.entry_col)
+
+    def device_idx(self, device) -> dict:
+        """The symbolic index lists as tensors on `device`, made once per
+        device: the pair lists in the order of their target entry (the
+        segment sum's order and lengths), the entry rows and columns and
+        the diagonal positions."""
+        device = torch.device(device)
+        ix = self._device_idx.get(device)
+        if ix is None:
+            order, lengths = segments(self.pair_e, self.nnz_up)
+
+            def t(v):
+                return torch.as_tensor(np.asarray(v, np.int64), device=device)
+
+            ix = dict(pair_p=t(self.pair_p[order]), pair_q=t(self.pair_q[order]),
+                      pair_k=t(self.pair_k[order]), pair_len=t(lengths),
+                      diag_pos=t(self.diag_pos), entry_row=t(self.entry_row),
+                      entry_col=t(self.entry_col))
+            self._device_idx[device] = ix
+        return ix
+
+    def factorize(self, prob, pr_diag, del_c):
+        # W = Σ (+ diag(H) for separable QPs): stays diagonal, so the
+        # normal-equations reduction is exact.
+        h_vals = getattr(prob, "h_vals", None)
+        if h_vals is not None and h_vals.shape[0]:
+            pr_diag = pr_diag + segment_sum(h_vals, prob.h_row_len, prob.h_row_order)
+        D = 1.0 / pr_diag
+        if self.assembly == "matmul":
+            return self._factorize_matmul(prob, D, del_c)
+        ix = self.device_idx(prob.a_vals.device)
+        contrib = prob.a_vals[ix["pair_p"]] * D[ix["pair_k"]] * prob.a_vals[ix["pair_q"]]
+        s_vals = segment_sum(contrib, ix["pair_len"])
+        s_vals[ix["diag_pos"]] -= del_c
+        # Symmetric Jacobi scaling to unit diagonal: Ms = Ds S Ds, solved
+        # through S^-1 = Ds Ms^-1 Ds; keeps a float32 factorization usable
+        # when the barrier diagonal spans ~1e+-8.
+        s_diag = s_vals[ix["diag_pos"]]
+        scale = torch.rsqrt(torch.clamp(s_diag, min=torch.finfo(s_diag.dtype).tiny))
+        s_vals = s_vals * scale[ix["entry_row"]] * scale[ix["entry_col"]]
+        if self.fact_dtype is not None and s_vals.dtype != self.fact_dtype:
+            s_vals = s_vals.to(self.fact_dtype)
+        m = self.m
+        Su = s_vals.new_zeros((m, m))
+        Su[ix["entry_row"], ix["entry_col"]] = s_vals
+        Sd = Su + Su.T - torch.diag(torch.diagonal(Su))
+        if self.fact_dtype == torch.float32:
+            # Static pivoting for float32: on the unit-diagonal matrix a
+            # 1e-6 diagonal shift bounds the pivots (the JAX package's
+            # fixed shift, kept as it is: ROADMAP.md Queue 3); refinement
+            # absorbs it.
+            Sd = Sd + 1e-6 * torch.eye(m, dtype=Sd.dtype, device=Sd.device)
+        Lc, iL = factor_inv_chol(Sd)
+        return ((Lc, iL), D, scale, prob, del_c)
+
+    def _factorize_matmul(self, prob, D, del_c):
+        """Assembly without pair lists: A scattered into a dense (m, n)
+        matrix and S = (A D) A' as one product, in the factorization's
+        dtype (the JAX package computes this product outside any Pallas
+        kernel; here it is torch.matmul)."""
+        dt = self.fact_dtype if self.fact_dtype is not None else prob.a_vals.dtype
+        m, n = self.m, self.n
+        Ad = prob.a_vals.new_zeros((m, n), dtype=dt)
+        Ad[prob.a_rows, prob.a_cols] = prob.a_vals.to(dt)
+        Sd = (Ad * D.to(dt)[None, :]) @ Ad.T
+        Sd = Sd - del_c * torch.eye(m, dtype=dt, device=Sd.device)
+        scale = torch.rsqrt(torch.clamp(torch.diagonal(Sd), min=torch.finfo(dt).tiny))
+        Sd = Sd * scale[:, None] * scale[None, :]
+        if self.fact_dtype == torch.float32:
+            # the diagonal shift as static pivoting (see factorize)
+            Sd = Sd + 1e-6 * torch.eye(m, dtype=dt, device=Sd.device)
+        Lc, iL = factor_inv_chol(Sd)
+        return ((Lc, iL), D, scale.to(D.dtype), prob, del_c)
+
+    def solve(self, factors, rx, ry):
+        (_L, iL), D, scale, prob, _del_c = factors
+        r1 = rx * D
+        r2 = (prob.jac_mv(r1) - ry) * scale
+        # one backsolve against the stored factor (in its dtype)
+        y = iL @ r2.to(iL.dtype)
+        dy = (iL.T @ y).to(r2.dtype) * scale
+        dx = (rx - prob.jac_rmv(dy)) * D
+        return dx, dy
+
+    def factor_ok(self, factors):
+        (L, _iL), D, _scale, _prob, _del_c = factors
+        dP = torch.diagonal(L)
+        return (D > 0).all() & torch.isfinite(dP).all() & (dP > 0).all()
+
+
+def make_problem(std, kkt, dtype, device):
+    """The sparse problem of the standard form `std` at `dtype` on
+    `device`, its Jacobian in the KKT's canonical COO order (a
+    `SparseQPProblem` when std has a diagonal Hessian)."""
+    def vec(v, dt=dtype):
+        return torch.as_tensor(np.asarray(v), dtype=dt, device=device)
+
+    a = coo_fields(kkt.coo_rows, kkt.coo_cols, canonical_coo_vals(std.A),
+                   std.m, std.n, dtype, device)
+    base = dict(c0=vec(std.c0), c=vec(std.c), b=vec(std.b),
+                has_lb=vec(std.has_lb, torch.bool), has_ub=vec(std.has_ub, torch.bool),
+                **{f"a_{k}": v for k, v in a.items()})
+    if std.H is not None and std.H.nnz:
+        Hcoo = canonical_csc(std.H).tocoo()
+        h = coo_fields(Hcoo.row, Hcoo.col, Hcoo.data, std.n, std.n, dtype, device)
+        return SparseQPProblem(**base, **{f"h_{k}": v for k, v in h.items()})
+    return SparseLPProblem(**base)
+
+
+def solve_sparse_lp(qp: QuadraticProblem, order: str = "auto",
+                    mode: str = "auto", *, device="cuda", **options):
+    """Solve a (large sparse) LP, or separable (diagonal-Hessian) QP, on
+    `device` (the CUDA card unless the caller asks for the CPU): sparse
+    matvecs, the normal matrix assembled there and factored as one dense
+    matrix (`mode="dense"`).
+
+    mode: "auto" takes "dense" for m <= dense_normal_limit (options); the
+    supernodal modes ("batched", "scan", and "auto" above the limit) are
+    not ported yet and raise naming ROADMAP.md's item.  `order` chooses
+    the supernodal ordering and has no effect on the dense mode.
+
+    Mixed precision (factorization_dtype="float32", the two-phase scheme):
+    a float32 phase to phase1_tol, then either the host endgame
+    (endgame="host", or "auto" with the native library: `HostMPCSolver`
+    warm-started from the float32 iterate, on the host normal equations,
+    or on the host K2 system when the assembly is "matmul") or a float64
+    phase of this path warm-started the same way.
+
+    Returns ExecutionStats like `solve`; `total_time` counts from entry."""
+    t0 = time.time()
+    device = torch.device(device)
+    opts, _ = load_options(**options)
+    opts = resolve_endgame(opts)
+    std, info, x0, y0 = build_standard_form_sparse(
+        qp, scaling=opts.scaling, max_gradient=opts.max_gradient)
+    if std.H is not None and std.H.nnz:
+        Hcoo = sp.coo_matrix(std.H)
+        if not (Hcoo.row == Hcoo.col).all():
+            raise ValueError(
+                "solve_sparse_lp handles LPs and diagonal-Hessian QPs only "
+                "(use solve_sparse_qp for general sparse QPs).")
+    if mode == "auto":
+        mode = "dense" if std.A.shape[0] <= opts.dense_normal_limit else "batched"
+    two_phase = (opts.factorization_dtype == "float32"
+                 and opts.precision_scheme == "two-phase"
+                 and opts.tol < opts.phase1_tol)
+    if opts.krylov_solve or (two_phase and opts.endgame == "krylov"):
+        raise NotImplementedError(
+            "the krylov endgame (preconditioned CG on the normal equations) is not "
+            f"ported yet (ROADMAP.md {KRYLOV_ITEM})")
+    if device.type == "cuda":
+        # Full-f32 products: a float32 factorization's accuracy rests on them.
+        torch.backends.cuda.matmul.allow_tf32 = False
+    fp = pattern_fingerprint(std.A, std.H)
+
+    def kernel_for(o):
+        # Pattern-keyed reuse: same sparsity and options => no symbolic
+        # re-analysis (values are the problem arrays').
+        return get_sparse_kernel(
+            f"lp:{order}:{mode}", fp, o,
+            lambda: DeviceSparseNormalKKT(std.A, mode=mode,
+                                          fact_dtype=o.factorization_dtype or None,
+                                          krylov=o.krylov_solve))
+
+    opts1, opts2 = two_phase_opts(opts, typed_phase1=True) if two_phase else (opts, None)
+    kkt, kernel = kernel_for(opts1)
+
+    def arrays(dtype_name):
+        dt = torch_dtype(dtype_name)
+        return (make_problem(std, kkt, dt, device),
+                *(torch.as_tensor(v, dtype=dt, device=device)
+                  for v in (std.lb, std.ub, x0, y0)))
+
+    prob, lb, ub, x0d, y0d = arrays(opts1.dtype)
+    final = stepped_solve(kernel, prob, x0d, y0d, lb, ub)
+    ls_time = measure_sparse_ls(kkt, prob, final, lb, ub) if opts.measure_linear_solver else None
+    if two_phase and opts.endgame == "host":
+        # The float32 phase's iterate warm-starts the host C++ LDL solver.
+        # Dense-column patterns (matmul assembly) make S dense, where the
+        # host's sparse LDL pays O(m^3) in CSC: those hand over to the
+        # host K2 system, whose fill follows nnz(A).
+        eg_kkt = "k2" if kkt.assembly == "matmul" else "normal"
+        stats = _host_endgame(qp, opts, final, info, std, t0, kkt_system=eg_kkt)
+        if ls_time is not None:
+            stats.counters.linear_solver_time += ls_time
+        return stats
+    extra, eg_time, eg_backend = 0, 0.0, ""
+    if two_phase:
+        # float64 phase of this path from the float32 phase's iterate.
+        eg_t0 = time.time()
+        eg_backend = "device-" + opts.endgame
+        extra = final.k
+        kkt2, kernel2 = kernel_for(opts2)
+        prob2, lb2, ub2, _, _ = arrays(opts2.dtype)
+        dt2 = prob2.c.dtype
+        final = stepped_solve(kernel2, prob2, final.x.to(dt2), final.y.to(dt2),
+                              lb2, ub2, warm=(final.zl.to(dt2), final.zu.to(dt2)))
+        eg_time = time.time() - eg_t0
+        if ls_time is not None:
+            ls_time += measure_sparse_ls(kkt2, prob2, final, lb2, ub2)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return finish_stats(qp, info, opts, final, time.time() - t0, extra_iters=extra,
+                        std=std, ls_time=ls_time, endgame_time=eg_time,
+                        endgame_backend=eg_backend)

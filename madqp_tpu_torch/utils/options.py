@@ -146,7 +146,7 @@ class IPMOptions:
     check_residual: bool = False
     max_refine_steps: int = 0   # iterative-refinement rounds per backsolve
     # 'chol' = triangular backsolves; 'inverse' = explicit inverses of the
-    # scaled SPD blocks (not ported yet).
+    # scaled SPD blocks (dense path).
     solve_mode: str = "chol"
     # Mixed precision: with factorization_dtype != dtype, 'two-phase' runs
     # the low-precision kernel first and chains a warm-started
@@ -154,8 +154,12 @@ class IPMOptions:
     # 'simple' = single-phase low precision + iterative refinement.
     precision_scheme: str = "two-phase"
     phase1_tol: float = 1e-3
-    # Sparse two-phase endgame ("auto", "f64", "krylov", "host"); validated
-    # here, used by the sparse paths (not ported yet).
+    # Endgame of the sparse two-phase scheme: "f64" a float64 phase of the
+    # device path, "host" the host C++ LDL solver warm-started from the
+    # float32 iterate, "krylov" float64 CG preconditioned by the float32
+    # factor (not ported yet); "auto" is "host" when the native library
+    # builds, else "f64".  The batched solver's "auto" and "host" re-solve
+    # the lanes its float32 phase failed on the host path.
     endgame: str = "auto"
     krylov_tol: float = 1e-12   # PCG relative-residual target
     krylov_maxit: int = 64
@@ -208,8 +212,10 @@ class IPMOptions:
     # KKT conditions has converged, the other is stuck, and the
     # corresponding iterates have diverged past this magnitude.
     diverge_tol: float = 1e8
-    # Sparse normal equations: m <= this goes to one dense factorization
-    # (sparse paths, not ported yet).
+    # Sparse normal equations (solve_sparse_lp mode="auto"): m <= this is
+    # assembled and factored as one dense matrix; above it the supernodal
+    # factorization (not ported yet).  The JAX package's value, tuned on a
+    # TPU and not re-measured on the card.
     dense_normal_limit: int = 12288
     # Numerics: dtype of the solver state, and an optionally lower dtype
     # for the KKT factorization (float32 factorization + float64 iterative
@@ -221,7 +227,7 @@ class IPMOptions:
     # "jit", "python" or "auto"; validated only: this package always steps
     # the MPC loop on the host.
     loop_mode: str = "auto"
-    # "bucket" pads to power-of-two shapes (batched path, not ported yet).
+    # "bucket" pads the dense path to power-of-two shapes.
     pad_mode: str = ""
     # Warm starting is driver-level state, not an option: use
     # MPCSolver.set_initial_point() / clear_initial_point().

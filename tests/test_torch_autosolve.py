@@ -9,8 +9,7 @@ entry point `autosolve`, against the JAX package.
     factorizations, ROADMAP.md Queue 3), objective to 1e-7 relative;
   * `autosolve` picks the same options as the JAX package (both packages'
     `solve` replaced by a recorder, no solve), solves a small problem the
-    same way, and raises naming ROADMAP item 13 where the JAX package takes
-    a sparse path;
+    same way, and takes the sparse path where the JAX package does;
   * entry points default to the CUDA card.
 """
 
@@ -188,15 +187,23 @@ def _sparse_qp(pkg, n=2000, m=100):
 
 
 def test_autosolve_sparse_route_raises(monkeypatch):
+    """A large sparse problem (here a diagonal Hessian) takes the sparse
+    route with kkt_system="auto" in both packages (it raised naming item
+    13 until the dense-normal path was ported): never the dense route, and
+    the port's solve matches the reference's (status, iterations,
+    objective 1e-9 relative)."""
     routed = {}
+    orig = jax_sparse_qp.solve_sparse_qp
     monkeypatch.setattr(jax_sparse_qp, "solve_sparse_qp",
-                        lambda qp, **kw: routed.setdefault("jax", kw))
-    mq.autosolve(_sparse_qp(mq))
-    assert routed["jax"]["kkt_system"] == "auto"
+                        lambda qp, **kw: routed.setdefault("jax", (kw, orig(qp, **kw)))[1])
+    want = mq.autosolve(_sparse_qp(mq), print_level=0)
+    assert routed["jax"][0]["kkt_system"] == "auto"
     monkeypatch.setattr(port_driver, "solve",
                         lambda *a, **kw: pytest.fail("took the dense route"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        mt.autosolve(_sparse_qp(mt), device="cpu")
+    got = mt.autosolve(_sparse_qp(mt), device="cpu", print_level=0)
+    assert int(got.status) == int(want.status) == 1
+    assert got.iter == want.iter
+    assert got.objective == pytest.approx(want.objective, rel=1e-9)
 
 
 @pytest.mark.parametrize("entry", [mt.solve, mt.MPCSolver, mt.autosolve,

@@ -15,6 +15,9 @@
   solution within 1e-6.
 * The port's batched lanes against its own single solves (equal
   iterations in float64), and the paths that raise.
+* The host rescue (endgame "auto" and "host" with the native library):
+  the same lanes rescued as in the reference, each with the port's
+  solve_host stats.
 """
 
 import dataclasses
@@ -278,7 +281,6 @@ def test_run_lanes_freezes_stopped_lanes():
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh=object()), "item 17"),
-    (dict(endgame="host", factorization_dtype="float32"), "item 12"),
     (dict(linear_solver="blocked"), "item 18"),
     (dict(solve_mode="inverse"), "item 18"),
     (dict(kkt_system="k2"), "item 18"),
@@ -288,6 +290,51 @@ def test_unported_batched_paths_raise(kwargs, item):
     qps = [mt.dense_dummy_qp(6, 3, seed=i) for i in range(2)]
     with pytest.raises(NotImplementedError, match=item):
         BatchedMPCSolver.from_problems(qps, device="cpu", print_level=40, **kwargs)
+
+
+def test_batched_host_endgame_matches_reference():
+    """endgame="host" on test_unported_batched_paths_raise's two problems
+    (it raised until the host path was ported): each lane's status,
+    iterations and objective (1e-9 relative) as the reference's."""
+    opts = dict(print_level=40, endgame="host", factorization_dtype="float32",
+                max_refine_steps=1)
+    want = JBatched.from_problems([mq.dense_dummy_qp(6, 3, seed=i) for i in range(2)],
+                                  **opts).solve_all()
+    got = BatchedMPCSolver.from_problems([mt.dense_dummy_qp(6, 3, seed=i) for i in range(2)],
+                                         device="cpu", **opts).solve_all()
+    for g, w in zip(got, want):
+        assert int(g.status) == int(w.status) == 1
+        assert g.iter == w.iter
+        assert g.objective == pytest.approx(w.objective, rel=1e-9)
+
+
+def test_batched_host_rescue_default():
+    """tests/test_parallel.py::test_batched_host_rescue_default in both
+    packages: with endgame="auto" and the native library, the lanes whose
+    float32 phase fails are re-solved on the host path: the same lanes in
+    both packages, every lane SOLVE_SUCCEEDED, a rescued lane's stats the
+    port's own solve_host of it (iterations equal, objective within 1e-8
+    relative of the host solve, and of the reference's rescued lane)."""
+    opts = lambda pkg: dict(tol=1e-8, max_ncorr=0, factorization_dtype="float32",  # noqa: E731
+                            max_refine_steps=1, step_rule=pkg.AdaptiveStep(0.995),
+                            regularization=pkg.FixedRegularization(1e-8, -1e-8))
+    jqps = _structured_problems()
+    jax_solver = JBatched.from_problems(jqps, **opts(mq))
+    want = jax_solver.solve_all()
+    qps = [_port_qp(q) for q in jqps]
+    solver = BatchedMPCSolver.from_problems(qps, device="cpu", **opts(mt))
+    got = solver.solve_all()
+    rescued = solver._rescue_overrides
+    assert rescued and sorted(rescued) == sorted(jax_solver._rescue_overrides)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.status == mt.Status.SOLVE_SUCCEEDED, i
+        if i in rescued:
+            host = mt.solve_host(qps[i], tol=1e-8, print_level=30, max_ncorr=0,
+                                 step_rule=mt.AdaptiveStep(0.995),
+                                 regularization=mt.FixedRegularization(1e-8, -1e-8))
+            assert g.iter == host.iter
+            assert g.objective == pytest.approx(host.objective, rel=1e-8)
+            assert g.objective == pytest.approx(w.objective, rel=1e-8)
 
 
 def test_loop_mode_is_accepted_without_effect():

@@ -400,3 +400,60 @@ def test_two_stage_solve_on_card_matches_cpu(cuda, fact):
     trials = routes.get("cta", 0)
     assert routes == {"cta": trials, "warp64": trials, "single": 2 * trials}
     assert trials >= got.counters.factorizations > 0
+
+
+def _staircase(seed=0):
+    """A presolved, scaled staircase LP whose normal matrix (m = 1200)
+    takes the panel Cholesky, so K8 runs."""
+    from madqp_tpu_torch.models.suite import staircase_lp
+
+    qp_p, _, ok = mt.presolve_qp(staircase_lp(1200, 4, seed=seed))
+    assert ok
+    return mt.scale_qp(qp_p)[0]
+
+
+def test_dense_normal_solve_on_card_matches_cpu(cuda):
+    """solve_sparse_lp (the normal equations assembled on the card, the
+    panel Cholesky with K8 from m = 1024) against the same solve on the CPU
+    (K8's plain version): status, iterations equal, objective 1e-10."""
+    kw = dict(tol=1e-8, print_level=40, max_ncorr=3, step_rule=mt.AdaptiveStep(0.995),
+              regularization=mt.FixedRegularization(1e-8, -1e-8))
+    before = K8.syrk_update.launches
+    got = mt.solve_sparse_lp(_staircase(), device=cuda, **kw)
+    launches = K8.syrk_update.launches - before
+    want = mt.solve_sparse_lp(_staircase(), device="cpu", **kw)
+    assert got.success and want.success
+    assert got.iter == want.iter
+    assert got.objective == pytest.approx(want.objective, rel=1e-10)
+    per = len(blocked_dense.panel_update_shapes(1200))
+    assert launches >= per * got.iter and launches % per == 0
+
+
+def test_dense_normal_assembly_is_deterministic_on_card(cuda):
+    """The normal matrix assembled (sorted segment sums, a scatter of
+    unique entries) and factored twice from one iterate: bit-equal."""
+    from madqp_tpu_torch.solver.sparse_lp import DeviceSparseNormalKKT, make_problem
+
+    std = mt.build_standard_form_sparse(_staircase(1))[0]
+    kkt = DeviceSparseNormalKKT(std.A)
+    prob = make_problem(std, kkt, torch.float64, cuda)
+    pr = torch.as_tensor(np.random.default_rng(0).uniform(0.5, 2.0, std.n), device=cuda)
+    del_c = torch.tensor(-1e-8, dtype=torch.float64, device=cuda)
+    (L1, iL1), _, s1, _, _ = kkt.factorize(prob, pr, del_c)
+    (L2, iL2), _, s2, _, _ = kkt.factorize(prob, pr, del_c)
+    assert kkt.assembly == "pairs" and kkt.m >= 1024
+    assert torch.equal(L1, L2) and torch.equal(iL1, iL2) and torch.equal(s1, s2)
+    assert bool(kkt.factor_ok(((L1, iL1), 1.0 / pr, s1, prob, del_c)))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("r,c,k", [(9984, 1792, 256), (8192, 8192, 2048), (2816, 1792, 256)])
+def test_syrk_kernel_at_dense_normal_panel_shapes(cuda, r, c, k, dtype, tol):
+    """K8 at launch shapes of the dense-normal path's panel Cholesky
+    (panel_update_shapes of m = 10000, gridlp_100's S, and m = 3000, svm's)."""
+    assert (r, c, k) in (blocked_dense.panel_update_shapes(10000)
+                         + blocked_dense.panel_update_shapes(3000))
+    C, B = syrk_inputs(r, c, k, dtype, seed=r + c + k)
+    out = K8.syrk_update(C, B)
+    plain = K8.syrk_update_reference(C, B)
+    assert float((out - plain).abs().max()) <= tol * float(plain.abs().max())

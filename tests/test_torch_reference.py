@@ -30,7 +30,21 @@ the headline options (float32 factorization, one refinement step):
     bucketed orders of W (null where the problem has no Hessian: W is
     then diagonal and never factored) and S (phase 13);
   * real_mm: the same record of the eight files of tests/data/real_mm,
-    float64, the runner's default options (phase 13's corpus).
+    float64, the runner's default options (phase 13's corpus);
+  * host_large: the reference runner's record of each large-tier instance
+    (seed 0, read back from its MPS file) with --backend host, the host
+    path with the native sparse LDL (phase 14);
+  * host_xlarge: the same record of the xlarge tier's members that ride
+    the normal equations up to dense_normal_limit (HOST_XLARGE: the LP
+    families but bandedlp, and svm), with the number of rows after
+    presolve; phase 15 holds the port's dense-normal sparse LP on the card
+    to them;
+  * sparse_xlarge: the reference runner's record of the same members with
+    --backend sparse-device --sparse-kkt auto (the JAX dense-normal path),
+    float64 and --mixed-precision --endgame host: where the dense-normal
+    path itself ends apart from the host path (an ill-scaled member in
+    float64, and any member under the float32 phase), phase 15 holds the
+    card to these.
 The card's machine has no JAX, so the smoke reads them from the file; this
 test regenerates them on the CPU and asserts the committed file still
 holds them.
@@ -45,7 +59,7 @@ is independent of the batch: the staleness check recomputes CHECKED_LANES
 as a batch of their own and compares them with the file.
 
 Regenerate the file with:  python tests/test_torch_reference.py --write
-(or only some entries:  ... --write --keys suite_large real_mm)
+(or only some entries:  ... --write --keys host_large host_xlarge)
 """
 
 import importlib.util
@@ -278,6 +292,84 @@ def suite_large_reference(skip=None, sets=tuple(SUITE_OPTIONS)):
     return out
 
 
+# The xlarge members of phase 15: every LP family with m <= 12288 rows
+# (dense_normal_limit; bandedlp's 15000 take the supernodal path) and svm,
+# a QP with a diagonal Hessian.
+HOST_XLARGE = ("transport", "multicomm", "staircase", "blending", "fixed",
+               "assignment", "setcover", "diet", "illscaled", "redundant",
+               "ranges", "gridlp", "svm")
+
+
+def host_options():
+    """benchmarks/run_suite.py's options under --backend host."""
+    opts = runner_options()
+    opts.pop("pad_mode")
+    return dict(opts, backend="host")
+
+
+def host_tier_reference(size, families=(), keep=None):
+    """{name: record} of the reference runner's --backend host on the
+    structured suite's `size` tier, seed 0, each instance written as an
+    MPS file and read back (only the names in `keep`, when given); the
+    record gains `m`, the rows after presolve."""
+    from madqp_tpu.io.mps_write import write_mps
+    from madqp_tpu.models.suite import structured_suite
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, qp in structured_suite(size, seeds=(0,), families=families):
+            if keep is not None and name not in keep:
+                continue
+            path = os.path.join(d, f"{name}.{'qps' if qp.H is not None else 'mps'}")
+            write_mps(qp, path)
+            qp = mq.read_mps(path)
+            rec = _run_suite().run_instance(name, qp, host_options())
+            out[name] = {k: rec.get(k) for k in ("status", "status_detail", "iter",
+                                                  "objective")}
+            out[name]["m"] = int(mq.presolve_qp(qp)[0].ncon)
+    return out
+
+
+def sparse_options(mixed=False):
+    """benchmarks/run_suite.py's options under --backend sparse-device
+    --sparse-kkt auto (and --mixed-precision --endgame host)."""
+    opts = dict(host_options(), backend="sparse-device", sparse_kkt="auto")
+    if mixed:
+        opts.update(factorization_dtype="float32", max_refine_steps=1, endgame="host")
+    return opts
+
+
+def sparse_xlarge_reference(keep=None):
+    """{name: {"f64": record, "mixed": record}} of the reference runner's
+    --backend sparse-device on the HOST_XLARGE members (xlarge, seed 0,
+    read back from MPS files)."""
+    from madqp_tpu.io.mps_write import write_mps
+    from madqp_tpu.models.suite import structured_suite
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, qp in structured_suite("xlarge", seeds=(0,), families=HOST_XLARGE):
+            if keep is not None and name not in keep:
+                continue
+            path = os.path.join(d, f"{name}.{'qps' if qp.H is not None else 'mps'}")
+            write_mps(qp, path)
+            qp = mq.read_mps(path)
+            out[name] = {}
+            for key, mixed in SUITE_OPTIONS.items():
+                rec = _run_suite().run_instance(name, qp, sparse_options(mixed))
+                out[name][key] = {k: rec.get(k) for k in (
+                    "status", "status_detail", "iter", "objective", "endgame_backend")}
+    return out
+
+
+def host_large_reference(keep=None):
+    return host_tier_reference("large", keep=keep)
+
+
+def host_xlarge_reference(keep=None):
+    return host_tier_reference("xlarge", HOST_XLARGE, keep=keep)
+
+
 def real_mm_reference():
     data = REPO / "tests" / "data" / "real_mm"
     return {f.split(".")[0]: runner_record(f.split(".")[0], mq.read_mps(str(data / f)))
@@ -287,7 +379,9 @@ def real_mm_reference():
 def generate_reference():
     return {**dense_reference(), "batched512": batched_reference(range(BATCH)),
             "qp_layer64": layer_reference(), "two_stage_1024": two_stage_reference(),
-            "suite_large": suite_large_reference(), "real_mm": real_mm_reference()}
+            "suite_large": suite_large_reference(), "real_mm": real_mm_reference(),
+            "host_large": host_large_reference(), "host_xlarge": host_xlarge_reference(),
+            "sparse_xlarge": sparse_xlarge_reference()}
 
 
 def _flatten(ref):
@@ -388,7 +482,9 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     if "--keys" in sys.argv:
         keys = sys.argv[sys.argv.index("--keys") + 1:]
-        makers = {"suite_large": suite_large_reference, "real_mm": real_mm_reference}
+        makers = {"suite_large": suite_large_reference, "real_mm": real_mm_reference,
+                  "host_large": host_large_reference, "host_xlarge": host_xlarge_reference,
+                  "sparse_xlarge": sparse_xlarge_reference}
         ref = json.loads(REF_PATH.read_text())
         ref.update({k: makers[k]() for k in keys})
     else:

@@ -1,19 +1,33 @@
 """Staleness check of the pipeline entries of
 madqp_tpu_torch/testdata/jax_reference.json (written by
-tests/test_torch_reference.py --write; chip_smoke.py phase 13 holds the
+tests/test_torch_reference.py --write; chip_smoke.py phases 13-15 hold the
 card to them): the reference runner's records of the structured suite's
 large tier, seed 0, read back from MPS files, recomputed with the JAX
 package on the CPU, one option set per case, the instances of
-test_torch_reference.STALE_SKIP left out.  Bucketed orders equal, status,
-status_detail and iterations equal, objective to 1e-10 relative.
+test_torch_reference.STALE_SKIP left out; and of its --backend host and
+--backend sparse-device records (host_large, host_xlarge, sparse_xlarge),
+a few instances each (STALE_HOST: the JAX package's eager host path takes
+1-40 s an instance on the CPU).  Bucketed orders and rows after presolve
+equal, status, status_detail and iterations equal, objective to 1e-10
+relative.
 """
 
 import json
 
 import pytest
 
-from test_torch_reference import (REF_PATH, STALE_SKIP, SUITE_OPTIONS, _same_record,
+from test_torch_reference import (HOST_XLARGE, REF_PATH, STALE_SKIP, SUITE_OPTIONS,
+                                  _same_record, host_large_reference,
+                                  host_xlarge_reference, sparse_xlarge_reference,
                                   suite_large_reference)
+
+# The instances of each host / sparse-device entry recomputed here.
+STALE_HOST = {
+    "host_large": (host_large_reference, ("blending_120_0", "svm_300x40_0",
+                                          "portfolio_200_0")),
+    "host_xlarge": (host_xlarge_reference, ("blending_400_0", "multicomm_60n8k_0")),
+    "sparse_xlarge": (sparse_xlarge_reference, ("blending_400_0", "transport_100x125_0")),
+}
 
 
 @pytest.mark.parametrize("key", list(SUITE_OPTIONS))
@@ -32,3 +46,21 @@ def test_committed_suite_large_matches_jax(key):
             _same_record(got[key], want[key], name)
         else:
             assert name in STALE_SKIP[key]
+
+
+@pytest.mark.parametrize("key", list(STALE_HOST))
+def test_committed_host_and_sparse_records_match_jax(key):
+    make, keep = STALE_HOST[key]
+    committed = json.loads(REF_PATH.read_text())[key]
+    assert len(committed) == (19 if key == "host_large" else len(HOST_XLARGE))
+    fresh = make(keep=set(keep))
+    assert sorted(fresh) == sorted(keep)
+    for name, want in fresh.items():
+        got = committed[name]
+        if key == "sparse_xlarge":
+            for label in SUITE_OPTIONS:
+                _same_record(got[label], want[label], f"{name} {label}")
+                assert got[label]["endgame_backend"] == want[label]["endgame_backend"]
+        else:
+            _same_record(got, want, name)
+            assert got["m"] == want["m"], name

@@ -22,7 +22,12 @@ the suite cell (the structured suite's large tier, seed 0, written as MPS
 files and run through the suite runner's `run_instance` with its default
 options and `"pallas"`: host seconds by stage, parse, presolve, scale,
 solve and unscale, then all 19 runs profiled, the idle share over the
-solves' walls): times
+solves' walls), and the sparse cells (an xlarge member, gridlp_100_0 or
+staircase_2000p24_0, written as an MPS file and run through the suite
+runner's --backend sparse-device: the normal matrix assembled on the card
+and factored as one dense matrix, K8 in its panel Cholesky; the host
+seconds of the symbolic phase, the contribution lists, timed apart; K8's
+share of the device time): times
 unprofiled solves on the host clock after one warm-up solve, then
 profiles one solve with torch.profiler, sums kernel time by layer (K1,
 K8, library Cholesky, triangular solves, matmul, reductions,
@@ -294,6 +299,54 @@ def profile_suite_large(torch, mt, linear_solver="pallas"):
                                 iters=sum(rec["iter"] for rec in records))}
 
 
+def profile_sparse(torch, mt, name, reps=3):
+    """The xlarge member `name` (seed 0, read back from its MPS file)
+    through the suite runner's --backend sparse-device: the KKT's host
+    symbolic phase timed alone on the presolved, scaled problem, a warm-up
+    run (its pattern then cached), `reps` unprofiled runs (host seconds by
+    stage), then one profiled run, whose idle share is taken over the
+    solve's own wall."""
+    import tempfile
+
+    from madqp_tpu_torch.io.mps_write import write_mps
+    from madqp_tpu_torch.solver.sparse_lp import DeviceSparseNormalKKT
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import run_suite_torch as runner
+
+    qp = dict(mt.structured_suite("xlarge", seeds=(0,), families=(name.split("_")[0],)))[name]
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / f"{name}.{'qps' if qp.H is not None else 'mps'}")
+        write_mps(qp, path)
+        qp = mt.read_mps(path)
+    std = mt.build_standard_form_sparse(mt.scale_qp(mt.presolve_qp(qp)[0])[0])[0]
+    t0 = time.perf_counter()
+    kkt = DeviceSparseNormalKKT(std.A)
+    symbolic = time.perf_counter() - t0
+    options = runner.solve_options(runner.parser().parse_args(["--backend", "sparse-device"]))
+
+    def run(stages):
+        rec = runner.run_instance(name, qp, options, stages=stages)
+        if rec["status"] != 1:
+            raise RuntimeError(f"{name}: {rec['status']} {rec.get('status_detail')}")
+        return rec
+
+    run({})  # warm-up: builds K8 and caches the pattern's lists
+    runs = []
+    for _ in range(reps):
+        stages = {}
+        rec = run(stages)
+        runs.append(dict(stages, iters=rec["iter"]))
+    stages = {}
+    rec, wall, busy_us, launches, runtime_us = device_profile(torch, lambda: run(stages))
+    out = summary(stages["solve_s"], busy_us, launches, runtime_us,
+                  run_wall_ms=wall * 1e3, iters=rec["iter"])
+    k8 = "K8 syrk_update (panel Cholesky trailing update)"
+    out["K8_share_of_busy"] = out["layers_ms"].get(k8, 0.0) / out["kernel_busy_ms"]
+    return {"m": kkt.m, "n": kkt.n, "assembly": kkt.assembly, "pairs": kkt.npairs,
+            "host_symbolic_s": symbolic, "unprofiled": runs, "profiled": out}
+
+
 CELLS = {
     "n500_pallas": lambda torch, mt: profile_cell(
         torch, mt, (500, 200), (1, 2, 3, 1, 2, 3), linear_solver="pallas"),
@@ -308,6 +361,9 @@ CELLS = {
     "n500x4_batch_pallas": lambda torch, mt: profile_batch_n500(torch, mt),
     "two_stage_1024": lambda torch, mt: profile_two_stage(torch, mt),
     "suite_large_pallas": lambda torch, mt: profile_suite_large(torch, mt),
+    "sparse_gridlp_100": lambda torch, mt: profile_sparse(torch, mt, "gridlp_100_0"),
+    "sparse_staircase_2000": lambda torch, mt: profile_sparse(
+        torch, mt, "staircase_2000p24_0"),
 }
 
 
@@ -329,8 +385,11 @@ def main():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(card)
-    record = {"card": card,
+    import chip_smoke
+
+    host_cpu = chip_smoke.cpu_model()
+    print(card, "; host CPU:", host_cpu)
+    record = {"card": card, "host_cpu": host_cpu,
               "cells": {name: CELLS[name](torch, mt) for name in args.cells}}
     with open(args.out, "w") as fh:
         json.dump(record, fh, indent=1)

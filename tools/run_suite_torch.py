@@ -2,18 +2,25 @@
 
 The port's counterpart of `benchmarks/run_suite.py` (the reference's
 scripts/benchmarks_{cpu,gpu}.jl): every instance goes through
-`read_mps` (or a generator) -> `presolve_qp` -> `scale_qp` -> `solve` ->
+`read_mps` (or a generator) -> `presolve_qp` -> `scale_qp` -> a solve ->
 `unscale_stats`, and one record per instance holds nvar, ncon, nnzj, nnzh,
 status, iter, objective, total_time and linear_solver_time, plus
 status_detail, the endgame fields where a solve reports them, warm_time
 under --repeat and the host's 1-minute load.  Instances come from a
 directory of MPS/QPS files (--dir, .gz and .bz2 included) or from a
-generated suite (--suite).  Imports madqp_tpu_torch only.
+generated suite (--suite).  The solve is the backend's: `solve` on
+--device (device, the default), `solve_host` (host: the CPU path with the
+native sparse LDL), or `solve_sparse_lp` / `solve_sparse_qp` on --device
+(sparse-device, with --sparse-kkt and --endgame).  Imports madqp_tpu_torch
+only.
 
 Usage:
     python tools/run_suite_torch.py --suite structured:large --linear-solver pallas
     python tools/run_suite_torch.py --dir tests/data/real_mm --device cpu
     python tools/run_suite_torch.py --suite structured:small --batched --device cpu
+    python tools/run_suite_torch.py --dir tests/data/real_mm --backend host
+    python tools/run_suite_torch.py --suite structured:xlarge --families gridlp \
+        --backend sparse-device --mixed-precision --endgame host
 
 `run_instance` is importable (`chip_smoke.py` and the tests call it).
 """
@@ -43,10 +50,10 @@ EXCLUSIONS = {
     "": [],
 }
 
-# Backends of the reference's runner that wait on their own port.
-UNPORTED_BACKENDS = {
-    "host": "ROADMAP Queue 1 item 12 (the host path, solve_host)",
-    "sparse-device": "ROADMAP Queue 1 item 13 (the sparse device paths)",
+# --sparse-kkt systems of the reference's runner that wait on their port.
+UNPORTED_SPARSE_KKT = {
+    "augmented": "ROADMAP Queue 1 item 13 step 3 (K2, supernodal signed LDL^T)",
+    "condensed": "ROADMAP Queue 1 item 13 step 4 (condensed K1)",
 }
 
 MPS_PATTERNS = ("*.mps", "*.qps", "*.sif", "*.SIF", "*.mps.gz", "*.mps.bz2",
@@ -72,14 +79,19 @@ def _load_guard(context, threshold=1.0, wait=False):
     return load
 
 
-def _require_ported(backend):
-    if backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"--backend {backend} is not ported yet: {UNPORTED_BACKENDS[backend]}")
-
-
 def _dispatch(qp_s, solve_opts, backend):
-    _require_ported(backend)
+    """The solve of `backend` (the reference runner's dispatch,
+    benchmarks/run_suite.py:75-91)."""
+    if backend == "host":
+        # the host path takes no device
+        return mt.solve_host(qp_s, **{k: v for k, v in solve_opts.items() if k != "device"})
+    if backend == "sparse-device":
+        opts = {k: v for k, v in solve_opts.items() if k not in ("pad_mode", "kkt_system")}
+        skkt = opts.pop("sparse_kkt", "auto")
+        if qp_s.is_lp and skkt == "auto":
+            return mt.solve_sparse_lp(qp_s, **opts)
+        # auto: a diagonal Hessian rides the normal equations too
+        return mt.solve_sparse_qp(qp_s, kkt_system=skkt, **opts)
     return mt.solve(qp_s, **solve_opts)
 
 
@@ -269,6 +281,10 @@ def solve_options(args) -> dict:
         backend=args.backend,
         device=args.device,
     )
+    if args.backend == "sparse-device":
+        options["sparse_kkt"] = args.sparse_kkt
+        if args.endgame:
+            options["endgame"] = args.endgame
     if args.backend == "device":
         options["pad_mode"] = "bucket"
     if args.mixed_precision:
@@ -295,8 +311,17 @@ def parser() -> argparse.ArgumentParser:
                          "blocked factor + inverse (K8), or K1")
     ap.add_argument("--backend", choices=["device", "host", "sparse-device"],
                     default="device",
-                    help="device = the dense solve on --device; host and "
-                         "sparse-device are not ported yet (they raise)")
+                    help="device = the dense solve on --device; host = the "
+                         "CPU path with the native sparse LDL; sparse-device "
+                         "= the sparse normal equations on --device")
+    ap.add_argument("--sparse-kkt", default="auto",
+                    choices=["auto", "augmented", "normal", "condensed"],
+                    help="KKT system of --backend sparse-device (augmented "
+                         "and condensed are not ported yet: they raise)")
+    ap.add_argument("--endgame", default="",
+                    choices=["", "auto", "f64", "krylov", "host"],
+                    help="two-phase endgame of --backend sparse-device "
+                         "--mixed-precision (krylov is not ported yet)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the solves (cuda or cpu)")
     ap.add_argument("--mixed-precision", action="store_true",
@@ -330,7 +355,9 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = parser()
     args = ap.parse_args(argv)
-    _require_ported(args.backend)
+    if args.backend == "sparse-device" and args.sparse_kkt in UNPORTED_SPARSE_KKT:
+        raise NotImplementedError(f"--sparse-kkt {args.sparse_kkt} is not ported yet: "
+                                  f"{UNPORTED_SPARSE_KKT[args.sparse_kkt]}")
     options = solve_options(args)
     excluded = set(filter(None, args.exclude.split(",")))
     excluded |= set(EXCLUSIONS[args.exclude_preset])
