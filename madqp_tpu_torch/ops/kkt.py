@@ -452,7 +452,6 @@ _KKT_REGISTRY = {
 # Formulations the reference package has and this package does not yet,
 # with the ROADMAP.md item that ports each.
 _NOT_PORTED = {
-    "sparse-normal": "Queue 1, item 13 step 2",     # supernodal normal equations
     "sparse-augmented": "Queue 1, item 13 step 3",  # supernodal signed LDL^T
 }
 

@@ -389,6 +389,24 @@ def cholesky_lower(A: torch.Tensor) -> torch.Tensor:
 cholesky_lower.launches = 0
 cholesky_lower.routes = {}
 
+# `batched_max_n` as an H100 reads it (227 KB of opt-in shared memory per
+# CTA): the route a stack takes there, which the CPU form below follows.
+H100_BATCHED_MAX_N = {torch.float32: 235, torch.float64: 163}
+
+
+def cholesky_lower_routed(A: torch.Tensor) -> torch.Tensor:
+    """`cholesky_lower` whose CPU form is the plain twin of the route the
+    card takes (`ROUTE_REFERENCE`; a stack's route at the H100's n_max),
+    where `cholesky_lower` on the CPU runs the 64-column version.  The
+    supernodal fronts (`ops/sparse_chol.py`) factor through it, so the CPU
+    tests follow the card's algorithm.  A CUDA tensor launches the kernel
+    (and counts) exactly as `cholesky_lower` does."""
+    n = _check_matrix(A)
+    if A.device.type != "cpu":
+        return cholesky_lower(A)
+    route = "single" if A.dim() == 2 else batched_route(n, H100_BATCHED_MAX_N[A.dtype])
+    return ROUTE_REFERENCE[route](A)
+
 
 # ---------------------------------------------------------------------------
 # Factor selection

@@ -18,6 +18,13 @@ follows only when it exits unconverged.
 (`parallel.pad_standard`); `autosolve` routes a problem by its shape to the
 dense path, with the blocked backend for large dense problems, or to the
 sparse device paths.
+
+`kkt_system="sparse-normal"` runs the same loop on the sparse device
+path of an LP or a diagonal-Hessian QP: COO problem arrays and the
+supernodal normal equations (`solver/sparse_lp.py`, mode "batched"), the
+KKT taken from the pattern cache (`sparse_common.get_sparse_kernel`, kind
+"lp:auto:batched").  Its mixed-precision scheme is the sparse one: the
+float32 phase to phase1_tol, then always the warm-started float64 phase.
 """
 
 from __future__ import annotations
@@ -26,9 +33,10 @@ import dataclasses
 import time
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
-from ..models.qp import QuadraticProblem, build_standard_form
+from ..models.qp import QuadraticProblem, build_standard_form, build_standard_form_sparse
 from ..ops.kkt import torch_dtype
 from ..parallel.batched import pad_standard
 from ..utils import (
@@ -111,6 +119,15 @@ class MPCSolver:
                 "kkt_system='schur' requires a block-angular TwoStageProblem:"
                 " solve it with madqp_tpu_torch.parallel.solve_two_stage."
             )
+        if opts.kkt_system == "sparse-normal" and not qp.is_lp:
+            # Beyond the reference (normalkkt.jl:45-48 rejects all QPs): a
+            # diagonal Hessian keeps W = H + Σ diagonal, so the normal
+            # equations still apply (see DeviceSparseNormalKKT).
+            Hcoo = sp.coo_matrix(qp.H)
+            if not (Hcoo.row == Hcoo.col).all():
+                raise ValueError(
+                    "sparse-normal KKT supports linear programs and "
+                    "diagonal-Hessian QPs; use sparse-augmented.")
         if self.device.type == "cuda":
             # The float32 factorization path's accuracy rests on full-f32
             # products followed by float64 refinement: keep TF32 off for
@@ -123,6 +140,17 @@ class MPCSolver:
         # reference's exception -> status taxonomy (src/solver.jl:379-380)
         # rather than escaping the constructor.
         self._construct_error = None
+        self._sparse = opts.kkt_system == "sparse-normal"
+        if self._sparse:
+            t0 = time.time()
+            try:
+                self._init_sparse(qp, opts)
+            except MadQPError as e:
+                self._construct_error = e
+                self.cnt = Counters(start_time=t0, init_time=time.time() - t0)
+                if opts.rethrow_error:
+                    raise
+            return
         t0 = time.time()
         try:
             self.std, self.info, x0_int, y0_int = build_standard_form(
@@ -154,9 +182,73 @@ class MPCSolver:
         self._warm_point = None
         self.cnt = Counters(start_time=t0, init_time=time.time() - t0)
 
+    def _init_sparse(self, qp, opts: IPMOptions):
+        """The sparse device path: the sparse standard form, COO problem
+        arrays on the device and the supernodal normal-equations KKT (its
+        symbolic schedule per pattern, from the pattern cache)."""
+        from .sparse_common import pattern_fingerprint
+        from .sparse_lp import DeviceSparseNormalKKT, make_problem
+
+        t0 = time.time()
+        self.std, self.info, x0_int, y0_int = build_standard_form_sparse(
+            qp, scaling=opts.scaling, max_gradient=opts.max_gradient,
+            fixed_variable_treatment=opts.fixed_variable_treatment,
+            bound_relax_factor=opts.bound_relax_factor,
+        )
+        fact_dtype = opts.factorization_dtype or None
+        inverse = opts.solve_mode == "inverse"
+        A = self.std.A
+        self._sparse_fp = pattern_fingerprint(A, self.std.H)
+        self._sparse_make = lambda: DeviceSparseNormalKKT(A, fact_dtype=fact_dtype,
+                                                          inverse=inverse)
+        self._sparse_make_f64 = lambda: DeviceSparseNormalKKT(A, inverse=inverse)
+        self._sparse_cfg = (opts.factorization_dtype, opts.solve_mode)
+        self._bind_kernel(opts)
+        dtype = torch_dtype(opts.dtype)
+        self.prob = make_problem(self.std, self.kernel.kkt, dtype, self.device)
+        self._lb0, self._ub0, self._x0, self._y0 = (
+            torch.as_tensor(v, dtype=dtype, device=self.device)
+            for v in (self.std.lb, self.std.ub, x0_int, y0_int))
+        self._warm_point = None
+        self.cnt = Counters(start_time=t0, init_time=time.time() - t0)
+
+    def _bind_sparse_kernel(self, opts: IPMOptions):
+        """The sparse path's kernels (kind "lp:auto:batched"): one, or the
+        float32 phase's and the float64 phase's under the two-phase scheme
+        (`sparse_common.two_phase_opts`)."""
+        from .sparse_common import get_sparse_kernel, two_phase_opts
+
+        if (opts.factorization_dtype, opts.solve_mode) != self._sparse_cfg:
+            # a precision or backsolve override changes the KKT's numeric
+            # plan: rebuild it on the same pattern
+            self._init_sparse(self.qp, opts)
+            return
+        kind = "lp:auto:batched"
+        two_phase = (opts.factorization_dtype == "float32"
+                     and opts.precision_scheme == "two-phase"
+                     and opts.tol < opts.phase1_tol)
+        if opts.krylov_solve or (two_phase and opts.endgame == "krylov"):
+            from .sparse_lp import KRYLOV_ITEM
+
+            raise NotImplementedError(
+                "the krylov endgame (preconditioned CG on the normal equations) is "
+                f"not ported yet (ROADMAP.md {KRYLOV_ITEM})")
+        if not two_phase:
+            _, self.kernel = get_sparse_kernel(kind, self._sparse_fp, opts,
+                                               self._sparse_make)
+            self._phase2 = None
+            return
+        opts1, opts2 = two_phase_opts(opts)
+        _, self.kernel = get_sparse_kernel(kind, self._sparse_fp, opts1, self._sparse_make)
+        _, self._phase2 = get_sparse_kernel(kind, self._sparse_fp, opts2,
+                                            self._sparse_make_f64)
+
     def _bind_kernel(self, opts: IPMOptions):
         """The MPC kernel for `opts` and, for the mixed-precision rescue,
         the full-precision kernel of phase 2."""
+        if self._sparse:
+            self._bind_sparse_kernel(opts)
+            return
         rescue = (opts.factorization_dtype
                   and opts.factorization_dtype != opts.dtype
                   and opts.precision_scheme == "two-phase")
@@ -401,8 +493,10 @@ class MPCSolver:
             return state
 
         state = run(self.kernel, state, 0)
-        if (self._phase2 is None or state.status == S.SUCCESS
-                or self._walltime_exceeded):
+        # The dense rescue runs phase 2 only when phase 1 failed; the sparse
+        # scheme's phase 1 stops at phase1_tol, so its phase 2 always runs.
+        if (self._phase2 is None or self._walltime_exceeded
+                or (state.status == S.SUCCESS and not self._sparse)):
             return state
         # Mixed-precision rescue: warm-start the full-precision phase from
         # the low-precision phase's last iterate.

@@ -1,29 +1,44 @@
 """The sparse LP path on the device: COO matvecs and the normal equations
-(port of `madqp_tpu/solver/sparse_lp.py`, its dense-normal mode).
+(port of `madqp_tpu/solver/sparse_lp.py`).
 
 The LP's Jacobian stays sparse on the device (COO, segment-sum matvecs);
 the normal matrix S = A D A' − δ_c I is assembled there every iteration
-and factored as one dense (m, m) matrix by `ops/blocked_dense.py::
-factor_inv_chol`: for m >= 1024 the panel Cholesky, whose trailing updates
-are the hand-written K8 (`ops/syrk.py`, `csrc/syrk.cu`), and the inverse
-factor, so each backsolve is two matvecs.  Two assemblies, chosen once per
-pattern as in the JAX package:
+and factored in one of two ways (`mode`):
+
+  * "dense" (m <= dense_normal_limit under "auto"): one dense (m, m)
+    matrix by `ops/blocked_dense.py::factor_inv_chol`: for m >= 1024 the
+    panel Cholesky, whose trailing updates are the hand-written K8
+    (`ops/syrk.py`, `csrc/syrk.cu`), and the inverse factor, so each
+    backsolve is two matvecs;
+  * "batched" (above the limit) and the one-front-at-a-time mode (any
+    other name; the reference's tests call it "unrolled"): the supernodal
+    multifrontal Cholesky of `ops/sparse_chol.py`, the symbolic schedule
+    built once per pattern on the host; K1 factors the fronts' leading
+    blocks, a stack per launch in "batched" (the route of
+    `ops/pallas_chol.py::batched_route`), one front per launch otherwise.  S's values go
+    to the schedule's permuted order by one gather (`value_gather`).  The
+    float32 phase of "batched" takes the pivot-floored LDL^T (all signs
+    +1, floor 1e-6); a pattern whose schedule exceeds
+    MADQP_MAX_UPDATE_ENTRIES is solved whole on the host path
+    (`endgame_backend="host-full"`).
+
+Two assemblies of S, chosen once per pattern as in the JAX package:
 
   * "pairs": host-precomputed contribution lists (every pair of rows
     sharing a column of A), a segment sum into S's upper pattern, the
     −δ_c diagonal, symmetric Jacobi scaling to unit diagonal, and a
     scatter into the dense matrix;
-  * "matmul": for A with dense columns, whose pair lists would explode,
-    A scattered into a dense (m, n) matrix and S = (A D) A' as one product.
+  * "matmul" (dense mode only): for A with dense columns, whose pair
+    lists would explode, A scattered into a dense (m, n) matrix and
+    S = (A D) A' as one product.
 
 Every sum is deterministic on the card: the pair lists are sorted by
 their target entry once, at symbolic time, and reduced with a sorted
 segment reduction; the scatters write unique entries.
 
-Not ported yet (they raise `NotImplementedError` naming the ROADMAP.md
-item): the supernodal modes ("batched", "scan", and "auto" above
-`dense_normal_limit`: Queue 1 item 13 step 2) and the krylov endgame
-(`endgame="krylov"`, `krylov_solve`: item 15, `ops/krylov.py::pcg`).
+Not ported yet (it raises `NotImplementedError` naming the ROADMAP.md
+item): the krylov endgame (`endgame="krylov"`, `krylov_solve`: item 15,
+`ops/krylov.py::pcg`).
 """
 
 from __future__ import annotations
@@ -36,15 +51,15 @@ import scipy.sparse as sp
 import torch
 
 from ..models.qp import QuadraticProblem, build_standard_form_sparse
+from ..ops import sparse_chol as SC
 from ..ops.blocked_dense import factor_inv_chol
 from ..ops.kkt import torch_dtype
 from ..utils import load_options
 from .sparse_common import (canonical_coo_vals, canonical_csc, get_sparse_kernel,
                             measure_sparse_ls, pattern_fingerprint, resolve_endgame,
                             segment_sum, segments, stepped_solve, two_phase_opts)
-from .sparse_qp import SparseQPProblem, _host_endgame, finish_stats
+from .sparse_qp import SparseQPProblem, _host_endgame, _host_full_solve, finish_stats
 
-SUPERNODAL_ITEM = "Queue 1, item 13 step 2"   # supernodal normal equations
 KRYLOV_ITEM = "Queue 1, item 15"              # ops/krylov.py::pcg
 
 
@@ -137,8 +152,9 @@ def _pair_lists(A: sp.csc_matrix, S_up: sp.csc_matrix):
 
 
 class DeviceSparseNormalKKT:
-    """Normal-equations KKT with assembly on the device and one dense
-    factorization (the JAX package's `mode="dense"`).
+    """Normal-equations KKT with assembly on the device and a dense
+    (`mode="dense"`), supernodal batched (`"batched"`) or one-front-at-a-
+    time (any other mode) factorization, as in the JAX package.
 
     Beyond the reference's NormalKKTSystem (LP only, normalkkt.jl:45-48),
     separable QPs (diagonal Hessian) keep W = H + Σ diagonal, so the same
@@ -147,17 +163,15 @@ class DeviceSparseNormalKKT:
 
     name = "sparse-normal(device)"
 
-    def __init__(self, A: sp.spmatrix, mode: str = "dense", fact_dtype=None,
-                 krylov: bool = False):
-        if mode != "dense":
-            raise NotImplementedError(
-                f"solve_sparse_lp mode={mode!r} (the supernodal normal equations) is "
-                f"not ported yet (ROADMAP.md {SUPERNODAL_ITEM}); mode='dense' is")
+    def __init__(self, A: sp.spmatrix, order: str = "auto", max_supernode: int = 128,
+                 mode: str = "batched", fact_dtype=None, inverse: bool = False,
+                 krylov: bool = False, schedule_mode: str = "greedy"):
         if krylov:
             raise NotImplementedError(
                 "the krylov endgame (preconditioned CG on the normal equations) is "
                 f"not ported yet (ROADMAP.md {KRYLOV_ITEM})")
         self.fact_dtype = torch_dtype(fact_dtype) if fact_dtype else None
+        self.inverse = inverse
         self.mode = mode
         A = sp.csc_matrix(A)
         A.sum_duplicates()
@@ -173,15 +187,19 @@ class DeviceSparseNormalKKT:
         self.coo_cols = Acoo.col.astype(np.int64)
         self.coo_vals = Acoo.data.copy()
         self._device_idx: dict = {}
+        self.symb = None
+        self.use_ldl = False
 
         # Assembly route: the pair lists cost sum_k nnz(col_k)^2 host work
         # and memory; an A with dense columns (the svm family: 200 columns
-        # x 3000 rows) explodes them, and the dense (m, n) product is
-        # cheaper whenever it is affordable and the pair count dwarfs it.
+        # x 3000 rows) explodes them, and in dense mode the dense (m, n)
+        # product is cheaper whenever it is affordable and the pair count
+        # dwarfs it.
         col_nnz = np.diff(A.indptr)
         npairs = int(np.sum(col_nnz.astype(np.int64) ** 2 + col_nnz) // 2)
         self.npairs = npairs
-        if m * n <= int(2e8) and (npairs > int(2e7) or npairs > 4 * m * n):
+        if mode == "dense" and m * n <= int(2e8) and (
+                npairs > int(2e7) or npairs > 4 * m * n):
             self.assembly = "matmul"
             return
         self.assembly = "pairs"
@@ -199,12 +217,32 @@ class DeviceSparseNormalKKT:
         self.entry_row = S_up.indices.astype(np.int64)
         self.entry_col = np.repeat(np.arange(m, dtype=np.int64), np.diff(S_up.indptr))
         self.diag_pos = np.flatnonzero(self.entry_row == self.entry_col)
+        if mode == "dense":
+            return
+
+        # The supernodal symbolic phase over S's pattern; S's values reach
+        # the schedule's permuted upper-CSC order through one gather.
+        if mode == "batched":
+            self.symb = SC.analyze_batched(S_pat, order=order, max_supernode=max_supernode,
+                                           schedule_mode=schedule_mode)
+        else:
+            self.symb = SC.analyze(S_pat, order=order, max_supernode=max_supernode)
+        self.value_gather = _value_gather(self.symb, S_up)
+        # A float32 factorization of the (SPD, but cond ~1e8 near
+        # convergence) normal matrix drives trailing pivots negative: the
+        # batched mode's float32 phase takes the pivot-floored LDL^T (signs
+        # all +1), refinement absorbing the perturbation.
+        self.use_ldl = self.fact_dtype == torch.float32 and mode == "batched"
+        if self.use_ldl:
+            self.expected_signs = SC.bucket_signs(self.symb, np.ones(m))
+            self.pivot_floor = 1e-6
 
     def device_idx(self, device) -> dict:
         """The symbolic index lists as tensors on `device`, made once per
         device: the pair lists in the order of their target entry (the
-        segment sum's order and lengths), the entry rows and columns and
-        the diagonal positions."""
+        segment sum's order and lengths), the entry rows and columns, the
+        diagonal positions, and for the supernodal modes the value gather
+        and the expected pivot signs."""
         device = torch.device(device)
         ix = self._device_idx.get(device)
         if ix is None:
@@ -217,6 +255,11 @@ class DeviceSparseNormalKKT:
                       pair_k=t(self.pair_k[order]), pair_len=t(lengths),
                       diag_pos=t(self.diag_pos), entry_row=t(self.entry_row),
                       entry_col=t(self.entry_col))
+            if self.symb is not None:
+                ix["value_gather"] = t(self.value_gather)
+            if self.use_ldl:
+                ix["signs"] = [torch.as_tensor(v, dtype=self.fact_dtype, device=device)
+                               for v in self.expected_signs]
             self._device_idx[device] = ix
         return ix
 
@@ -239,8 +282,23 @@ class DeviceSparseNormalKKT:
         s_diag = s_vals[ix["diag_pos"]]
         scale = torch.rsqrt(torch.clamp(s_diag, min=torch.finfo(s_diag.dtype).tiny))
         s_vals = s_vals * scale[ix["entry_row"]] * scale[ix["entry_col"]]
+        if self.mode != "dense":
+            s_vals = s_vals[ix["value_gather"]]
         if self.fact_dtype is not None and s_vals.dtype != self.fact_dtype:
             s_vals = s_vals.to(self.fact_dtype)
+        if self.use_ldl:
+            panels = SC.factorize_batched_ldl(self.symb, s_vals, signs=ix["signs"],
+                                              pivot_floor=self.pivot_floor,
+                                              inverse=self.inverse)
+        elif self.mode == "batched":
+            panels = SC.factorize_batched(self.symb, s_vals, inverse=self.inverse)
+        elif self.mode != "dense":
+            panels = SC.factorize(self.symb, s_vals)
+        else:
+            panels = self._factorize_dense(s_vals, ix)
+        return (panels, D, scale, prob, del_c)
+
+    def _factorize_dense(self, s_vals, ix):
         m = self.m
         Su = s_vals.new_zeros((m, m))
         Su[ix["entry_row"], ix["entry_col"]] = s_vals
@@ -251,8 +309,7 @@ class DeviceSparseNormalKKT:
             # fixed shift, kept as it is: ROADMAP.md Queue 3); refinement
             # absorbs it.
             Sd = Sd + 1e-6 * torch.eye(m, dtype=Sd.dtype, device=Sd.device)
-        Lc, iL = factor_inv_chol(Sd)
-        return ((Lc, iL), D, scale, prob, del_c)
+        return factor_inv_chol(Sd)
 
     def _factorize_matmul(self, prob, D, del_c):
         """Assembly without pair lists: A scattered into a dense (m, n)
@@ -268,25 +325,64 @@ class DeviceSparseNormalKKT:
         scale = torch.rsqrt(torch.clamp(torch.diagonal(Sd), min=torch.finfo(dt).tiny))
         Sd = Sd * scale[:, None] * scale[None, :]
         if self.fact_dtype == torch.float32:
-            # the diagonal shift as static pivoting (see factorize)
+            # the diagonal shift as static pivoting (see _factorize_dense)
             Sd = Sd + 1e-6 * torch.eye(m, dtype=dt, device=Sd.device)
-        Lc, iL = factor_inv_chol(Sd)
-        return ((Lc, iL), D, scale.to(D.dtype), prob, del_c)
+        return (factor_inv_chol(Sd), D, scale.to(D.dtype), prob, del_c)
+
+    def _apply_factor(self, panels, r2):
+        """One backsolve against the stored factorization (in its dtype)."""
+        out_dtype = r2.dtype
+        if self.fact_dtype is not None and r2.dtype != self.fact_dtype:
+            r2 = r2.to(self.fact_dtype)
+        if self.mode == "dense":
+            _L, iL = panels
+            dy = iL.T @ (iL @ r2)
+        elif self.use_ldl:
+            dy = SC.solve_batched_ldl(self.symb, panels, r2, inverse=self.inverse)
+        elif self.mode == "batched":
+            dy = SC.solve_batched(self.symb, panels, r2, inverse=self.inverse)
+        else:
+            dy = SC.solve(self.symb, panels, r2)
+        return dy.to(out_dtype)
 
     def solve(self, factors, rx, ry):
-        (_L, iL), D, scale, prob, _del_c = factors
+        panels, D, scale, prob, _del_c = factors
         r1 = rx * D
         r2 = (prob.jac_mv(r1) - ry) * scale
-        # one backsolve against the stored factor (in its dtype)
-        y = iL @ r2.to(iL.dtype)
-        dy = (iL.T @ y).to(r2.dtype) * scale
+        dy = self._apply_factor(panels, r2) * scale
         dx = (rx - prob.jac_rmv(dy)) * D
         return dx, dy
 
     def factor_ok(self, factors):
-        (L, _iL), D, _scale, _prob, _del_c = factors
-        dP = torch.diagonal(L)
-        return (D > 0).all() & torch.isfinite(dP).all() & (dP > 0).all()
+        panels, D, _scale, _prob, _del_c = factors
+        ok = (D > 0).all()
+        if self.mode == "dense":
+            dP = torch.diagonal(panels[0])
+            return ok & torch.isfinite(dP).all() & (dP > 0).all()
+        if self.use_ldl:
+            ix = self.device_idx(D.device)
+            return ok & SC.factor_ok_batched_ldl(panels, ix["signs"])
+        if self.mode == "batched":
+            return ok & SC.factor_ok_batched(panels)
+        for P in panels:
+            dP = torch.diagonal(P[: P.shape[1], :])
+            ok = ok & torch.isfinite(dP).all() & (dP > 0).all()
+        return ok
+
+
+def _value_gather(symb, S_up: sp.csc_matrix) -> np.ndarray:
+    """For each entry of the schedule's permuted upper CSC (`symb.Up`,
+    `symb.Ui`), its position in S_up's value array: the permuted entry
+    (Ui[p], j) is S's (perm[Ui[p]], perm[j]), stored at the upper position
+    of that pair (the JAX package's loop, by a sorted key search)."""
+    m = S_up.shape[0]
+    perm = np.asarray(symb.perm, np.int64)
+    col = np.repeat(np.arange(m, dtype=np.int64), np.diff(symb.Up))
+    gi, gj = perm[symb.Ui.astype(np.int64)], perm[col]
+    lo, hi = np.minimum(gi, gj), np.maximum(gi, gj)
+    up_col = np.repeat(np.arange(m, dtype=np.int64), np.diff(S_up.indptr))
+    keys = up_col * m + S_up.indices.astype(np.int64)
+    return np.searchsorted(keys, hi * m + lo).astype(np.int32)
 
 
 def make_problem(std, kkt, dtype, device):
@@ -313,12 +409,16 @@ def solve_sparse_lp(qp: QuadraticProblem, order: str = "auto",
     """Solve a (large sparse) LP, or separable (diagonal-Hessian) QP, on
     `device` (the CUDA card unless the caller asks for the CPU): sparse
     matvecs, the normal matrix assembled there and factored as one dense
-    matrix (`mode="dense"`).
+    matrix or by the supernodal Cholesky.
 
-    mode: "auto" takes "dense" for m <= dense_normal_limit (options); the
-    supernodal modes ("batched", "scan", and "auto" above the limit) are
-    not ported yet and raise naming ROADMAP.md's item.  `order` chooses
-    the supernodal ordering and has no effect on the dense mode.
+    mode: "auto" takes "dense" for m <= dense_normal_limit (options) and
+    "batched" (the supernodal schedule, K1's batched form on the fronts)
+    above it; "dense", "batched" or any other name (one front at a time,
+    the reference's "unrolled" / "scan") force a mode.  `order` chooses
+    the supernodal ordering ("auto": the cheaper schedule of AMD and
+    nested dissection) and has no effect on the dense mode.  A pattern
+    whose schedule exceeds MADQP_MAX_UPDATE_ENTRIES is solved whole on the
+    host path (`endgame_backend="host-full"`).
 
     Mixed precision (factorization_dtype="float32", the two-phase scheme):
     a float32 phase to phase1_tol, then either the host endgame
@@ -359,12 +459,19 @@ def solve_sparse_lp(qp: QuadraticProblem, order: str = "auto",
         # re-analysis (values are the problem arrays').
         return get_sparse_kernel(
             f"lp:{order}:{mode}", fp, o,
-            lambda: DeviceSparseNormalKKT(std.A, mode=mode,
+            lambda: DeviceSparseNormalKKT(std.A, order=order, mode=mode,
                                           fact_dtype=o.factorization_dtype or None,
-                                          krylov=o.krylov_solve))
+                                          inverse=(o.solve_mode == "inverse"),
+                                          krylov=o.krylov_solve,
+                                          schedule_mode=o.sparse_schedule))
 
     opts1, opts2 = two_phase_opts(opts, typed_phase1=True) if two_phase else (opts, None)
-    kkt, kernel = kernel_for(opts1)
+    try:
+        kkt, kernel = kernel_for(opts1)
+    except SC.ScheduleTooLargeError:
+        # A high-fill pattern whose flat scatter-map schedule would exceed
+        # the update-traffic cap: the whole solve runs on the host path.
+        return _host_full_solve(qp, opts, t0, kkt_system="normal")
 
     def arrays(dtype_name):
         dt = torch_dtype(dtype_name)

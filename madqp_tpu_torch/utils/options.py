@@ -8,10 +8,11 @@ rule, regularization, barrier update) passed as *values*.
 Some options select paths this package has not ported yet (see
 `ROADMAP.md`, Queue 1).  They are still accepted and validated here; the
 KKT factory and the driver raise `NotImplementedError` naming the roadmap
-item when such a path is requested.  The options that exist only for the
-reference package's compile plumbing (`loop_mode`, `sparse_schedule`)
-are accepted and have no effect: this package always steps the MPC loop
-on the host.
+item when such a path is requested.  `loop_mode`, which exists only for
+the reference package's compile plumbing, is accepted and has no effect:
+this package always steps the MPC loop on the host.  `sparse_schedule`
+("greedy" or "level") picks the supernodal schedule of the sparse LP's
+"batched" mode, as in the reference.
 """
 
 from __future__ import annotations

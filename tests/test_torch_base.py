@@ -248,7 +248,7 @@ def test_port_never_imports_jax():
                    "io/mps_write.py", "models/scaling.py", "models/presolve.py",
                    "models/suite.py", "native/__init__.py", "solver/host.py",
                    "solver/sparse_common.py", "solver/sparse_lp.py",
-                   "solver/sparse_qp.py"}
+                   "solver/sparse_qp.py", "ops/sparse_chol.py"}
     assert new_modules <= {f.relative_to(PORT_DIR).as_posix() for f in sources}
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
@@ -262,12 +262,16 @@ def test_import_leaves_default_dtype_unchanged():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(kkt_system="sparse-normal"), "item 13"),
+    # kkt_system="sparse-normal" is ported (the supernodal normal
+    # equations); its krylov endgame is not (the case keeps its id)
+    pytest.param(dict(kkt_system="sparse-normal", factorization_dtype="float32",
+                      endgame="krylov"), "item 15", id="kwargs0-item 13"),
     (dict(kkt_system="sparse-augmented"), "item 13"),
 ])
 def test_unported_paths_raise(kwargs, item):
+    qp = mt.simple_lp() if kwargs["kkt_system"] == "sparse-normal" else mt.dense_dummy_qp(6, 3)
     with pytest.raises(NotImplementedError, match=item):
-        mt.MPCSolver(mt.dense_dummy_qp(6, 3), device="cpu", print_level=0, **kwargs)
+        mt.MPCSolver(qp, device="cpu", print_level=0, **kwargs)
 
 
 def test_construction_errors_match_reference():

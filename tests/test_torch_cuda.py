@@ -435,7 +435,7 @@ def test_dense_normal_assembly_is_deterministic_on_card(cuda):
     from madqp_tpu_torch.solver.sparse_lp import DeviceSparseNormalKKT, make_problem
 
     std = mt.build_standard_form_sparse(_staircase(1))[0]
-    kkt = DeviceSparseNormalKKT(std.A)
+    kkt = DeviceSparseNormalKKT(std.A, mode="dense")
     prob = make_problem(std, kkt, torch.float64, cuda)
     pr = torch.as_tensor(np.random.default_rng(0).uniform(0.5, 2.0, std.n), device=cuda)
     del_c = torch.tensor(-1e-8, dtype=torch.float64, device=cuda)
@@ -457,3 +457,50 @@ def test_syrk_kernel_at_dense_normal_panel_shapes(cuda, r, c, k, dtype, tol):
     out = K8.syrk_update(C, B)
     plain = K8.syrk_update_reference(C, B)
     assert float((out - plain).abs().max()) <= tol * float(plain.abs().max())
+
+
+def _banded_lp(n=2400):
+    return mt.banded_sparse_lp(n=n, m=n // 2, band=5, seed=0)
+
+
+@pytest.mark.parametrize("options", [{}, dict(solve_mode="inverse"),
+                                     dict(factorization_dtype="float32",
+                                          max_refine_steps=1, endgame="f64"),
+                                     dict(mode="unrolled")],
+                         ids=["f64", "inverse", "two-phase", "per-supernode"])
+def test_supernodal_solve_on_card_matches_cpu(cuda, options):
+    """solve_sparse_lp(mode="batched") on the card (K1's batched form on
+    every front stack; one front at a time, K1 on each, with
+    mode="unrolled") against the same solve on the CPU (the routes' plain
+    versions): status and iterations equal, objective to 1e-9."""
+    kw = {"mode": "batched", "tol": 1e-8, "print_level": 0, **options}
+    before = K1.cholesky_lower.launches
+    got = mt.solve_sparse_lp(_banded_lp(), device=cuda, **kw)
+    launched = K1.cholesky_lower.launches - before
+    want = mt.solve_sparse_lp(_banded_lp(), device="cpu", **kw)
+    assert got.status == want.status == mt.Status.SOLVE_SUCCEEDED
+    assert got.iter == want.iter
+    assert got.objective == pytest.approx(want.objective, rel=1e-9)
+    assert launched > 0
+
+
+def test_supernodal_factorization_is_deterministic_on_card(cuda):
+    """The supernodal normal matrix assembled (sorted segment sums) and
+    factored twice from one iterate: every panel bit-equal; the card's
+    panels within 1e-12 of the CPU's."""
+    from madqp_tpu_torch.solver.sparse_lp import DeviceSparseNormalKKT, make_problem
+
+    std = mt.build_standard_form_sparse(_banded_lp())[0]
+    kkt = DeviceSparseNormalKKT(std.A, mode="batched")
+    pr = np.random.default_rng(0).uniform(0.5, 2.0, std.n)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        prob = make_problem(std, kkt, torch.float64, dev)
+        dc = torch.tensor(-1e-8, dtype=torch.float64, device=dev)
+        a = kkt.factorize(prob, torch.as_tensor(pr, device=dev), dc)
+        b = kkt.factorize(prob, torch.as_tensor(pr, device=dev), dc)
+        assert all(torch.equal(u, v) for u, v in zip(a[0], b[0]))
+        assert bool(kkt.factor_ok(a))
+        out[dev.type] = a[0]
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert float((g.cpu() - w).abs().max()) <= 1e-12 * float(w.abs().max())

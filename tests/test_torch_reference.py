@@ -362,6 +362,42 @@ def sparse_xlarge_reference(keep=None):
     return out
 
 
+SUPERNODAL_XLARGE = ("bandedlp",)
+
+
+def supernodal_xlarge_reference(keep=None, labels=("host", "host_mixed", "f64", "mixed")):
+    """{name: {label: record}} of the reference runner on the xlarge LP
+    member above dense_normal_limit (bandedlp_30000_0, m = 15000 after
+    presolve: --backend sparse-device takes the supernodal path), seed 0,
+    read back from an MPS file: --backend host in float64 ("host", with
+    `m`) and with --mixed-precision ("host_mixed"), and --backend
+    sparse-device in float64 ("f64") and with --mixed-precision --endgame
+    host ("mixed", with its endgame backend).  `labels` picks the records
+    made."""
+    from madqp_tpu.io.mps_write import write_mps
+    from madqp_tpu.models.suite import structured_suite
+
+    keys = ("status", "status_detail", "iter", "objective")
+    options = {"host": host_options(),
+               "host_mixed": dict(host_options(), factorization_dtype="float32",
+                                  max_refine_steps=1),
+               "f64": sparse_options(), "mixed": sparse_options(mixed=True)}
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, qp in structured_suite("xlarge", seeds=(0,), families=SUPERNODAL_XLARGE):
+            if keep is not None and name not in keep:
+                continue
+            path = os.path.join(d, f"{name}.mps")
+            write_mps(qp, path)
+            qp = mq.read_mps(path)
+            out[name] = {"m": int(mq.presolve_qp(qp)[0].ncon)}
+            for label in labels:
+                rec = _run_suite().run_instance(name, qp, options[label])
+                out[name][label] = {k: rec.get(k) for k in keys + (
+                    ("endgame_backend",) if label == "mixed" else ())}
+    return out
+
+
 def host_large_reference(keep=None):
     return host_tier_reference("large", keep=keep)
 
@@ -381,7 +417,8 @@ def generate_reference():
             "qp_layer64": layer_reference(), "two_stage_1024": two_stage_reference(),
             "suite_large": suite_large_reference(), "real_mm": real_mm_reference(),
             "host_large": host_large_reference(), "host_xlarge": host_xlarge_reference(),
-            "sparse_xlarge": sparse_xlarge_reference()}
+            "sparse_xlarge": sparse_xlarge_reference(),
+            "supernodal_xlarge": supernodal_xlarge_reference()}
 
 
 def _flatten(ref):
@@ -461,11 +498,11 @@ def test_committed_two_stage_matches_jax():
     np.testing.assert_allclose(got["x0"], fresh["x0"], rtol=1e-10, atol=1e-12)
 
 
-def _same_record(got, want, key):
+def _same_record(got, want, key, obj_rtol=1e-10):
     assert got["status"] == want["status"], key
     assert got["status_detail"] == want["status_detail"], key
     assert got["iter"] == want["iter"], key
-    assert got["objective"] == pytest.approx(want["objective"], rel=1e-10), key
+    assert got["objective"] == pytest.approx(want["objective"], rel=obj_rtol), key
 
 
 def test_committed_real_mm_matches_jax():
@@ -484,7 +521,8 @@ if __name__ == "__main__":
         keys = sys.argv[sys.argv.index("--keys") + 1:]
         makers = {"suite_large": suite_large_reference, "real_mm": real_mm_reference,
                   "host_large": host_large_reference, "host_xlarge": host_xlarge_reference,
-                  "sparse_xlarge": sparse_xlarge_reference}
+                  "sparse_xlarge": sparse_xlarge_reference,
+                  "supernodal_xlarge": supernodal_xlarge_reference}
         ref = json.loads(REF_PATH.read_text())
         ref.update({k: makers[k]() for k in keys})
     else:

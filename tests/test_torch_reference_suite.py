@@ -7,9 +7,11 @@ package on the CPU, one option set per case, the instances of
 test_torch_reference.STALE_SKIP left out; and of its --backend host and
 --backend sparse-device records (host_large, host_xlarge, sparse_xlarge),
 a few instances each (STALE_HOST: the JAX package's eager host path takes
-1-40 s an instance on the CPU).  Bucketed orders and rows after presolve
+1-40 s an instance on the CPU), and of supernodal_xlarge its cheapest
+record, bandedlp_30000_0's --backend host (~10 s).  Bucketed orders and rows after presolve
 equal, status, status_detail and iterations equal, objective to 1e-10
-relative.
+relative; the `mixed` records of sparse_xlarge hold the objective to
+MIXED_OBJ_RTOL instead (below).
 """
 
 import json
@@ -19,7 +21,7 @@ import pytest
 from test_torch_reference import (HOST_XLARGE, REF_PATH, STALE_SKIP, SUITE_OPTIONS,
                                   _same_record, host_large_reference,
                                   host_xlarge_reference, sparse_xlarge_reference,
-                                  suite_large_reference)
+                                  suite_large_reference, supernodal_xlarge_reference)
 
 # The instances of each host / sparse-device entry recomputed here.
 STALE_HOST = {
@@ -28,6 +30,15 @@ STALE_HOST = {
     "host_xlarge": (host_xlarge_reference, ("blending_400_0", "multicomm_60n8k_0")),
     "sparse_xlarge": (sparse_xlarge_reference, ("blending_400_0", "transport_100x125_0")),
 }
+
+# The reference's float32 phase does not repeat its last digits across
+# CPUs: blending_400_0's `mixed` objective, recomputed on another x86 host,
+# is 1.1470283339473841 against the committed 1.1470283373953214 (3.0e-9
+# relative, 12 iterations in both).  The objective of a `mixed` record is
+# held to 30 times that spread, still 33 times inside its 3.3e-6 distance
+# from the float64 optimum (ROADMAP.md Queue 3); status, status_detail,
+# iterations and the endgame's backend stay exact.
+MIXED_OBJ_RTOL = 1e-7
 
 
 @pytest.mark.parametrize("key", list(SUITE_OPTIONS))
@@ -59,8 +70,28 @@ def test_committed_host_and_sparse_records_match_jax(key):
         got = committed[name]
         if key == "sparse_xlarge":
             for label in SUITE_OPTIONS:
-                _same_record(got[label], want[label], f"{name} {label}")
+                _same_record(got[label], want[label], f"{name} {label}",
+                             obj_rtol=MIXED_OBJ_RTOL if label == "mixed" else 1e-10)
                 assert got[label]["endgame_backend"] == want[label]["endgame_backend"]
         else:
             _same_record(got, want, name)
             assert got["m"] == want["m"], name
+
+
+def test_committed_supernodal_record_matches_jax():
+    """supernodal_xlarge (bandedlp_30000_0, the xlarge LP above
+    dense_normal_limit; chip_smoke.py phase 16 holds the card to it): its
+    --backend host record recomputed (the sparse-device records take
+    20-40 s more and are recomputed only by the --write run), the others'
+    shape checked."""
+    committed = json.loads(REF_PATH.read_text())["supernodal_xlarge"]
+    assert sorted(committed) == ["bandedlp_30000_0"]
+    fresh = supernodal_xlarge_reference(labels=("host",))
+    for name, want in fresh.items():
+        got = committed[name]
+        assert got["m"] == want["m"] == 15000
+        _same_record(got["host"], want["host"], name)
+        assert set(got) == {"m", "host", "host_mixed", "f64", "mixed"}
+        assert all(got[k]["status"] == 1 for k in ("host_mixed", "f64", "mixed"))
+        assert got["f64"]["iter"] == got["host"]["iter"]
+        assert got["mixed"]["endgame_backend"] in ("host", "host-cold")

@@ -19,6 +19,16 @@ plain version there).
 * The port's dense-normal solve against its own host path
   (`test_dense_normal_mode_matches_host`), `autosolve`'s sparse route,
   and the routes that raise naming ROADMAP.md's item.
+* The supernodal modes ("batched", and one front at a time, the
+  reference's "unrolled"): the KKT's residual cases of
+  tests/test_sparse_lp.py (its value gather equal to the reference's),
+  whole float64 solves against the reference on the large tier's
+  bandedlp_4000_0 and gridlp_32_0 and the mesh families (status and
+  iterations equal, objective within 1e-9 relative, solution within 1e-7),
+  the float32 phase (the pivot-floored LDL^T) with each endgame, the
+  host-full route under a lowered MADQP_MAX_UPDATE_ENTRIES,
+  `MPCSolver(kkt_system="sparse-normal")`, and the runner's --backend
+  sparse-device on bandedlp_4000_0 with dense_normal_limit below its m.
 """
 
 import inspect
@@ -511,13 +521,18 @@ def test_rejects_general_qp_as_reference():
             pkg.solve_sparse_qp(pkg.simple_lp(), kkt_system="nope", **kw)
 
 
+def _supernodal_route(pkg, **kw):
+    """A route that raised before the supernodal path was ported: it now
+    solves (a 60 x 30 banded LP, m above dense_normal_limit or the mode
+    forced); `kw` are the route's options."""
+    return pkg.solve_sparse_lp(pkg.banded_sparse_lp(60, 30), tol=1e-8, print_level=0,
+                               **kw)
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda: mt.solve_sparse_lp(mt.banded_sparse_lp(60, 30), mode="batched", **CPU),
-     "item 13 step 2"),
-    (lambda: mt.solve_sparse_lp(mt.banded_sparse_lp(60, 30), mode="scan", **CPU),
-     "item 13 step 2"),
-    (lambda: mt.solve_sparse_lp(mt.banded_sparse_lp(60, 30), dense_normal_limit=20, **CPU),
-     "item 13 step 2"),
+    (dict(mode="batched"), None),
+    (dict(mode="scan"), None),
+    (dict(dense_normal_limit=20), None),
     (lambda: mt.solve_sparse_lp(mt.banded_sparse_lp(60, 30), endgame="krylov",
                                 factorization_dtype="float32", **CPU), "item 15"),
     (lambda: mt.solve_sparse_lp(mt.banded_sparse_lp(60, 30), krylov_solve=True, **CPU),
@@ -532,6 +547,14 @@ def test_rejects_general_qp_as_reference():
 ], ids=["batched", "scan", "above-dense-normal-limit", "krylov-endgame", "krylov-solve",
         "augmented", "k2.5", "condensed", "auto-nondiagonal"])
 def test_unported_sparse_routes_raise(call, item):
+    """The krylov endgame and the augmented and condensed systems raise
+    naming their ROADMAP.md item; the supernodal routes (a dict of
+    options, item None) run and match the reference."""
+    if item is None:
+        got, want = _supernodal_route(mt, **call, **CPU), _supernodal_route(mq, **call)
+        assert got.status == mt.Status.SOLVE_SUCCEEDED
+        _compare(got, want)
+        return
     with pytest.raises(NotImplementedError, match=item):
         call()
 
@@ -539,3 +562,197 @@ def test_unported_sparse_routes_raise(call, item):
 @pytest.mark.parametrize("entry", [mt.solve_sparse_lp, mt.solve_sparse_qp])
 def test_sparse_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# The supernodal modes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("order,mode", [("amd", "batched"), ("rcm", "batched"),
+                                        ("amd", "unrolled")])
+def test_supernodal_kkt_residual(order, mode):
+    """tests/test_sparse_lp.py's residual case in the supernodal modes: the
+    schedule's value gather equal to the reference's, the reduced system's
+    solution within 1e-10 of the reference's, its residuals within 1e-10,
+    and two factorizations bit-equal."""
+    A, pr, rx, ry = _kkt_inputs()
+    m, n = A.shape
+    del_c = -1e-8
+    jk = JL.DeviceSparseNormalKKT(A, order=order, mode=mode)
+    tk = TL.DeviceSparseNormalKKT(A, order=order, mode=mode)
+    np.testing.assert_array_equal(tk.value_gather, jk.value_gather)
+    np.testing.assert_array_equal(tk.symb.perm, jk.symb.perm)
+    jp = JL.SparseLPProblem(
+        c0=jnp.zeros(()), c=jnp.zeros(n), b=jnp.zeros(m), has_lb=jnp.ones(n, bool),
+        has_ub=jnp.zeros(n, bool), a_rows=jnp.asarray(jk.coo_rows),
+        a_cols=jnp.asarray(jk.coo_cols), a_vals=jnp.asarray(jk.coo_vals))
+    tp = _port_problem(tk, m, n)
+    dc = torch.tensor(del_c, dtype=torch.float64)
+    jf = jk.factorize(jp, jnp.asarray(pr), del_c)
+    tf = tk.factorize(tp, torch.as_tensor(pr), dc)
+    assert bool(jk.factor_ok(jf)) and bool(tk.factor_ok(tf))
+    jdx, jdy = jk.solve(jf, jnp.asarray(rx), jnp.asarray(ry))
+    tdx, tdy = tk.solve(tf, torch.as_tensor(rx), torch.as_tensor(ry))
+    np.testing.assert_allclose(tdx.numpy(), np.asarray(jdx), atol=1e-10)
+    np.testing.assert_allclose(tdy.numpy(), np.asarray(jdy), atol=1e-10)
+    Ad = A.toarray()
+    dx, dy = tdx.numpy(), tdy.numpy()
+    assert np.abs(pr * dx + Ad.T @ dy - rx).max() < 1e-10
+    assert np.abs(Ad @ dx + del_c * dy - ry).max() < 1e-10
+    again = tk.factorize(tp, torch.as_tensor(pr), dc)
+    assert all(torch.equal(u, v) for u, v in zip(tf[0], again[0]))
+
+
+def _large_member(pkg, family):
+    """A large-tier member (seed 0), presolved and scaled as the runner
+    does."""
+    from importlib import import_module
+
+    suite = import_module(f"{pkg.__name__}.models.suite")
+    (_, qp), = suite.structured_suite("large", seeds=(0,), families=(family,))
+    qp_p, _, ok = pkg.presolve_qp(qp)
+    assert ok
+    return pkg.scale_qp(qp_p)[0]
+
+
+SUPERNODAL = {
+    # bandedlp_4000_0 (m = 2000) with the stored inverse diagonal blocks
+    "bandedlp_4000_0": (lambda pkg: _large_member(pkg, "bandedlp"),
+                        dict(solve_mode="inverse")),
+    "gridlp_32_0": (lambda pkg: _large_member(pkg, "gridlp"), {}),
+    "grid3d": (lambda pkg: pkg.grid3d_lp(8), {}),
+    "netflow": (lambda pkg: pkg.netflow_grid_lp(14), {}),
+}
+
+
+@pytest.mark.parametrize("case", list(SUPERNODAL))
+def test_batched_solve_matches_reference(case):
+    make, kw = SUPERNODAL[case]
+    got = mt.solve_sparse_lp(make(mt), mode="batched", **_common(mt), **kw, **CPU)
+    want = mq.solve_sparse_lp(make(mq), mode="batched", **_common(mq), **kw)
+    assert got.status == mt.Status.SOLVE_SUCCEEDED
+    _compare(got, want)
+
+
+@pytest.mark.parametrize("endgame", ["host", "f64"])
+def test_batched_two_phase_matches_reference(endgame):
+    """tests/test_mixed_precision_sparse.py's banded LP (cut to n = 600)
+    with mode="batched": the float32 phase on the pivot-floored LDL^T,
+    then the host endgame or the float64 supernodal phase; status and the
+    endgame's backend equal, iterations within ITER_BAND, the objective
+    within 1e-9 of the float64 solve's."""
+    kw = dict(mode="batched", tol=1e-8, print_level=0, endgame=endgame, **MIXED)
+    got = mt.solve_sparse_lp(_banded(mt), **kw, **CPU)
+    want = mq.solve_sparse_lp(_banded(mq), **kw)
+    ref64 = mt.solve_sparse_lp(_banded(mt), mode="batched", tol=1e-8, print_level=0, **CPU)
+    assert got.status == want.status == mt.Status.SOLVE_SUCCEEDED
+    assert got.counters.endgame_backend == want.counters.endgame_backend
+    assert abs(got.iter - want.iter) <= ITER_BAND
+    assert got.objective == pytest.approx(ref64.objective, rel=OBJ_RTOL)
+    assert got.primal_feas < 1e-8 and got.dual_feas < 1e-8
+    kkt = next(k for k, _ in TC._KERNEL_CACHE.values()
+               if k.mode == "batched" and k.fact_dtype == torch.float32)
+    assert kkt.use_ldl and kkt.pivot_floor == 1e-6
+
+
+def test_batched_simple_scheme_runs_one_phase():
+    st = mt.solve_sparse_lp(_banded(mt), mode="batched", tol=1e-8, print_level=0, max_iter=40,
+                            precision_scheme="simple", factorization_dtype="float32",
+                            max_refine_steps=2, **CPU)
+    assert st.status in (mt.Status.SOLVE_SUCCEEDED, mt.Status.MAXIMUM_ITERATIONS_EXCEEDED)
+    assert st.counters.endgame_backend == ""
+
+
+def test_schedule_cap_falls_back_to_host(monkeypatch):
+    """tests/test_sparse_lp.py's case: above MADQP_MAX_UPDATE_ENTRIES the
+    whole solve runs on the host path ('host-full'), in both packages."""
+    monkeypatch.setenv("MADQP_MAX_UPDATE_ENTRIES", "10")
+    TC._KERNEL_CACHE.clear()
+    JC._KERNEL_CACHE.clear()
+    got = mt.solve_sparse_lp(mt.banded_sparse_lp(n=400, m=200, band=5, seed=3),
+                             mode="batched", tol=1e-8, print_level=0, **CPU)
+    want = mq.solve_sparse_lp(mq.banded_sparse_lp(n=400, m=200, band=5, seed=3),
+                              mode="batched", tol=1e-8, print_level=0)
+    assert got.status == mt.Status.SOLVE_SUCCEEDED
+    assert got.counters.endgame_backend == want.counters.endgame_backend == "host-full"
+    assert got.counters.endgame_time == got.counters.total_time
+    _compare(got, want)
+
+
+@pytest.mark.parametrize("options", [{}, dict(solve_mode="inverse"), MIXED],
+                         ids=["f64", "inverse", "two-phase"])
+def test_mpcsolver_sparse_normal_matches_reference(options):
+    """MPCSolver(kkt_system="sparse-normal") (the "lp:auto:batched"
+    kernel), in float64, with stored inverses, and with the float32
+    factorization (its phase 2 always runs); against the reference's."""
+    def run(pkg, **kw):
+        return pkg.MPCSolver(_banded(pkg), kkt_system="sparse-normal", tol=1e-8,
+                             print_level=40, **options, **kw).solve()
+
+    got, want = run(mt, **CPU), run(mq)
+    assert got.status == mt.Status.SOLVE_SUCCEEDED
+    assert got.primal_feas < 1e-8 and got.dual_feas < 1e-8
+    if options is MIXED:
+        assert got.status == want.status and abs(got.iter - want.iter) <= ITER_BAND
+        assert got.objective == pytest.approx(want.objective, rel=OBJ_RTOL)
+    else:
+        _compare(got, want)
+
+
+def test_mpcsolver_sparse_normal_rejects_general_qp_as_reference():
+    for pkg, kw in ((mq, {}), (mt, CPU)):
+        with pytest.raises(ValueError, match="diagonal-Hessian"):
+            pkg.MPCSolver(pkg.random_qp(n=20, m=10, seed=0), kkt_system="sparse-normal",
+                          print_level=0, **kw)
+
+
+def test_runner_takes_the_supernodal_path():
+    """The slice end to end: bandedlp_4000_0 through the port's runner
+    (read -> presolve -> scale -> solve_sparse_lp -> unscale) with
+    --backend sparse-device and dense_normal_limit below its m = 2000, so
+    "auto" takes the supernodal path, against the reference runner's
+    record with the same options."""
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for sub in ("benchmarks", "tools"):
+        if os.path.join(repo, sub) not in sys.path:
+            sys.path.insert(0, os.path.join(repo, sub))
+    import run_suite as R
+    import run_suite_torch as T
+    from madqp_tpu.models.suite import structured_suite as jsuite
+    from madqp_tpu_torch.models.suite import structured_suite as tsuite
+
+    def options(pkg):
+        return dict(print_level=40, tol=1e-8, max_iter=300, max_ncorr=3,
+                    kkt_system="condensed", linear_solver="dense",
+                    step_rule=pkg.AdaptiveStep(0.995),
+                    regularization=pkg.FixedRegularization(1e-8, -1e-8),
+                    backend="sparse-device", sparse_kkt="auto", dense_normal_limit=1000)
+
+    (name, jqp), = jsuite("large", seeds=(0,), families=("bandedlp",))
+    (_, tqp), = tsuite("large", seeds=(0,), families=("bandedlp",))
+    TC._KERNEL_CACHE.clear()
+    got = T.run_instance(name, tqp, dict(options(mt), device="cpu"))
+    want = R.run_instance(name, jqp, options(mq))
+    kkt = next(reversed(TC._KERNEL_CACHE.values()))[0]
+    assert kkt.mode == "batched" and kkt.m == 2000 and kkt.symb is not None
+    for key in ("status", "status_detail", "iter"):
+        assert got[key] == want[key], key
+    assert got["status"] == 1
+    assert got["objective"] == pytest.approx(want["objective"], rel=OBJ_RTOL)
+
+
+def test_separable_qp_rides_the_supernodal_normal_equations():
+    """A diagonal Hessian in the supernodal mode: W = H + Σ stays diagonal,
+    so `solve_sparse_lp(mode="batched")` takes the QP; against the
+    reference."""
+    def run(pkg, **kw):
+        return pkg.solve_sparse_lp(pkg.separable_qp(n=300, m=120, band=4, seed=2),
+                                   mode="batched", tol=1e-8, print_level=0, **kw)
+
+    got = run(mt, **CPU)
+    assert got.status == mt.Status.SOLVE_SUCCEEDED
+    _compare(got, run(mq))

@@ -11,7 +11,11 @@ and n = 2000 solves) and on stacks (B, n, n): (512, 42) and (512, 16), W
 and S of the batched-512 solve; (64, 32) and (64, 8), the qp_layer batch;
 (4, 200) and (4, 600), S and W of the n = 500 QPs as one batch; (512, 100)
 and (256, 160), large stacks of mid-size matrices (one CTA per matrix);
-(1024, 96) and (1024, 48), U and S of the two-stage cell;
+(1024, 96) and (1024, 48), U and S of the two-stage cell; the supernodal
+fronts' F11 stacks (ops/sparse_chol.py): (128, 128) of bandedlp_30000,
+(351, 8), (85, 32), (25, 128) and (5, 128) of gridlp_100's schedule, and a
+chain step's front as a stack of one (1, 128) beside the same matrix on
+one launch of the persistent kernel (single 128);
 each stack beside `torch.linalg.cholesky_ex` on it; float32 and float64.
 A time is chip_smoke.py's (`cuda_median_ms`, the script beside this
 one's folder, whichever checkout is timed): the median of 20 samples,
@@ -29,9 +33,10 @@ import json
 import sys
 from pathlib import Path
 
-SINGLE = (600, 2500)
+SINGLE = (128, 600, 2500)
 STACKS = ((512, 42), (512, 16), (64, 32), (64, 8), (4, 200), (4, 600), (512, 100),
-          (256, 160), (1024, 96), (1024, 48))
+          (256, 160), (1024, 96), (1024, 48), (128, 128), (351, 8), (85, 32), (25, 128),
+          (5, 128), (1, 128))
 
 
 def smoke_module():

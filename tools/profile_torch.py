@@ -22,12 +22,17 @@ the suite cell (the structured suite's large tier, seed 0, written as MPS
 files and run through the suite runner's `run_instance` with its default
 options and `"pallas"`: host seconds by stage, parse, presolve, scale,
 solve and unscale, then all 19 runs profiled, the idle share over the
-solves' walls), and the sparse cells (an xlarge member, gridlp_100_0 or
-staircase_2000p24_0, written as an MPS file and run through the suite
-runner's --backend sparse-device: the normal matrix assembled on the card
-and factored as one dense matrix, K8 in its panel Cholesky; the host
-seconds of the symbolic phase, the contribution lists, timed apart; K8's
-share of the device time): times
+solves' walls), and the sparse cells (an xlarge member, gridlp_100_0,
+staircase_2000p24_0 or bandedlp_30000_0, written as an MPS file and run
+through the suite runner's --backend sparse-device: the normal matrix
+assembled on the card and factored as one dense matrix, K8 in its panel
+Cholesky, or, above dense_normal_limit (bandedlp, m = 15000), by the
+supernodal Cholesky with K1's batched form on the fronts; the host
+seconds of the symbolic phase (the contribution lists, and the supernodal
+schedule) timed apart; K8's share of the device time; on the supernodal
+path the device time of its parts (front assembly and extend-add, the
+front factor and products, the update write-out, the forward and
+backward sweeps) from profiler ranges around them): times
 unprofiled solves on the host clock after one warm-up solve, then
 profiles one solve with torch.profiler, sums kernel time by layer (K1,
 K8, library Cholesky, triangular solves, matmul, reductions,
@@ -299,17 +304,49 @@ def profile_suite_large(torch, mt, linear_solver="pallas"):
                                 iters=sum(rec["iter"] for rec in records))}
 
 
+# The supernodal numeric phase's parts (ops/sparse_chol.py), each wrapped
+# in a profiler range for the profiled run.
+SUPERNODAL_PARTS = {"_assemble": "front assembly + extend-add",
+                    "_chol_front": "front factor (K1) + L21, U products",
+                    "_write_out": "update write-out",
+                    "_forward": "forward sweep", "_backward": "backward sweep"}
+
+
+def ranged(torch, module, parts):
+    """Wrap module.<fn> for fn in `parts` in a profiler range named by its
+    label; returns the originals, for `module.__dict__.update`."""
+    from torch.profiler import record_function
+
+    originals = {fn: getattr(module, fn) for fn in parts}
+
+    def wrap(fn, label):
+        def inner(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return inner
+
+    for fn, label in parts.items():
+        setattr(module, fn, wrap(originals[fn], label))
+    return originals
+
+
 def profile_sparse(torch, mt, name, reps=3):
     """The xlarge member `name` (seed 0, read back from its MPS file)
     through the suite runner's --backend sparse-device: the KKT's host
-    symbolic phase timed alone on the presolved, scaled problem, a warm-up
-    run (its pattern then cached), `reps` unprofiled runs (host seconds by
-    stage), then one profiled run, whose idle share is taken over the
-    solve's own wall."""
+    symbolic phase timed alone on the presolved, scaled problem (dense or
+    supernodal, as "auto" routes it), a warm-up run (its pattern then
+    cached), `reps` unprofiled runs (host seconds by stage), then one
+    profiled run, whose idle share is taken over the solve's own wall."""
     import tempfile
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from madqp_tpu_torch.io.mps_write import write_mps
+    from madqp_tpu_torch.ops import pallas_chol
+    from madqp_tpu_torch.ops import sparse_chol as SC
     from madqp_tpu_torch.solver.sparse_lp import DeviceSparseNormalKKT
+    from madqp_tpu_torch.utils.options import IPMOptions
 
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import run_suite_torch as runner
@@ -320,8 +357,9 @@ def profile_sparse(torch, mt, name, reps=3):
         write_mps(qp, path)
         qp = mt.read_mps(path)
     std = mt.build_standard_form_sparse(mt.scale_qp(mt.presolve_qp(qp)[0])[0])[0]
+    mode = "dense" if std.m <= IPMOptions().dense_normal_limit else "batched"
     t0 = time.perf_counter()
-    kkt = DeviceSparseNormalKKT(std.A)
+    kkt = DeviceSparseNormalKKT(std.A, mode=mode)
     symbolic = time.perf_counter() - t0
     options = runner.solve_options(runner.parser().parse_args(["--backend", "sparse-device"]))
 
@@ -343,8 +381,32 @@ def profile_sparse(torch, mt, name, reps=3):
                   run_wall_ms=wall * 1e3, iters=rec["iter"])
     k8 = "K8 syrk_update (panel Cholesky trailing update)"
     out["K8_share_of_busy"] = out["layers_ms"].get(k8, 0.0) / out["kernel_busy_ms"]
-    return {"m": kkt.m, "n": kkt.n, "assembly": kkt.assembly, "pairs": kkt.npairs,
-            "host_symbolic_s": symbolic, "unprofiled": runs, "profiled": out}
+    cell = {"m": kkt.m, "n": kkt.n, "mode": mode, "assembly": kkt.assembly,
+            "pairs": kkt.npairs, "host_symbolic_s": symbolic, "unprofiled": runs,
+            "profiled": out}
+    if mode == "batched":
+        # the parts of the numeric phase, one more run under the ranges
+        pallas_chol.cholesky_lower.routes.clear()
+        originals = ranged(torch, SC, SUPERNODAL_PARTS)
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run({})
+                torch.cuda.synchronize()
+        finally:
+            SC.__dict__.update(originals)
+        parts, calls = collections.Counter(), collections.Counter()
+        for e in prof.events():
+            if e.name in SUPERNODAL_PARTS.values() and e.device_type != DeviceType.CUDA:
+                parts[e.name] += (e.device_time_total if hasattr(e, "device_time_total")
+                                  else e.cuda_time_total)
+                calls[e.name] += 1
+        cell["supernodal_parts_device_ms"] = {k: v / 1e3 for k, v in parts.items()}
+        cell["supernodal_parts_calls"] = dict(calls)
+        cell["K1_routes_of_that_run"] = dict(pallas_chol.cholesky_lower.routes)
+        cell["front_stacks"] = [(type(it).__name__, it.w_pad, it.u_pad,
+                                 1 if isinstance(it, SC._Chain) else it.count,
+                                 getattr(it, "steps", 1)) for it in kkt.symb.schedule]
+    return cell
 
 
 CELLS = {
@@ -364,6 +426,7 @@ CELLS = {
     "sparse_gridlp_100": lambda torch, mt: profile_sparse(torch, mt, "gridlp_100_0"),
     "sparse_staircase_2000": lambda torch, mt: profile_sparse(
         torch, mt, "staircase_2000p24_0"),
+    "sparse_bandedlp_30000": lambda torch, mt: profile_sparse(torch, mt, "bandedlp_30000_0"),
 }
 
 

@@ -11,8 +11,11 @@ directory of MPS/QPS files (--dir, .gz and .bz2 included) or from a
 generated suite (--suite).  The solve is the backend's: `solve` on
 --device (device, the default), `solve_host` (host: the CPU path with the
 native sparse LDL), or `solve_sparse_lp` / `solve_sparse_qp` on --device
-(sparse-device, with --sparse-kkt and --endgame).  Imports madqp_tpu_torch
-only.
+(sparse-device, with --sparse-kkt and --endgame): as in the reference's
+runner, the normal equations of an LP (or a diagonal-Hessian QP) are one
+dense matrix up to dense_normal_limit rows after presolve and the
+supernodal Cholesky above it (bandedlp_30000's 15000 rows).  Imports
+madqp_tpu_torch only.
 
 Usage:
     python tools/run_suite_torch.py --suite structured:large --linear-solver pallas
@@ -21,6 +24,8 @@ Usage:
     python tools/run_suite_torch.py --dir tests/data/real_mm --backend host
     python tools/run_suite_torch.py --suite structured:xlarge --families gridlp \
         --backend sparse-device --mixed-precision --endgame host
+    python tools/run_suite_torch.py --suite structured:xlarge --families bandedlp \
+        --backend sparse-device
 
 `run_instance` is importable (`chip_smoke.py` and the tests call it).
 """
@@ -313,7 +318,8 @@ def parser() -> argparse.ArgumentParser:
                     default="device",
                     help="device = the dense solve on --device; host = the "
                          "CPU path with the native sparse LDL; sparse-device "
-                         "= the sparse normal equations on --device")
+                         "= the sparse normal equations on --device (dense "
+                         "up to dense_normal_limit rows, supernodal above)")
     ap.add_argument("--sparse-kkt", default="auto",
                     choices=["auto", "augmented", "normal", "condensed"],
                     help="KKT system of --backend sparse-device (augmented "
