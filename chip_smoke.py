@@ -5,8 +5,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (each raises on failure, so any failure exits non-zero):
   1. device   print the card's name and power limit; pin TF32 off;
-  2. build    compile the K1 Cholesky (single-matrix and batched) and K8
-              rank-k update kernels from madqp_tpu_torch/csrc/, one nvcc
+  2. build    compile the K1 Cholesky (single-matrix and batched), K8
+              rank-k update and K2-batched LDL^T kernels from
+              madqp_tpu_torch/csrc/, one nvcc
               per source, in parallel; print ptxas's registers, stack and
               spills per kernel (their shared memory is dynamic, set by
               each source's smem_bytes) and count the FP64 tensor-core
@@ -154,7 +155,38 @@ Phases (each raises on failure, so any failure exits non-zero):
               step's one front on its stack route and on the 2-D launch;
               bandedlp's supernodal KKT built (host symbolic seconds), its
               S assembled and factored twice from one iterate, bit-equal,
-              with ms per factorization and per backsolve.
+              with ms per factorization and per backsolve; the
+              --mixed-precision run's float32 fronts factored by
+              K2-batched (one launch per front stack and trial);
+ 17. sparse QP a. K2-batched (the signed no-pivot LDL^T of a stack,
+              csrc/ldl_batched.cu) against its plain version
+              (ldl_batched.ldl_batched_reference) on quasi-definite stacks
+              at LDL_WIDTHS x LDL_BATCHES, float32 and float64, with and
+              without the pivot floor (ldl_batched.TOL relative to max|L|
+              and max|d| per matrix), one launch per stack, two runs
+              bit-equal, a zero pivot's inf / NaN in its own matrix only;
+              CUDA-event times at LDL_TIMED beside the plain version and
+              the bound, and for orientation only ldl_factor_ex (which
+              pivots) and cholesky_ex on an SPD stack;
+              b. the xlarge tier's QP members with a general Hessian
+              (chainqp_50000, cvxqp_20000, lasso_50000, portfolio_800;
+              read back from QPS files) through --backend sparse-device
+              --sparse-kkt auto, the augmented K2 system whose every front
+              stack K2-batched factors: in float64 against the reference
+              runner's augmented_xlarge records (status, iterations within
+              1, objective within 1e-8) and with --mixed-precision
+              --endgame host (iterations within MIXED_ITER_BAND, objective
+              within MIXED_RTOL of the float64 record or twice the
+              reference's own distance); --sparse-kkt condensed on chainqp
+              and cvxqp in float64 (K1's batched form on C's fronts;
+              iterations within COND_ITER_BAND of condensed_xlarge) and
+              cvxqp with --mixed-precision --endgame krylov; per run the
+              K2-batched and K1 launches per factorization trial, solve
+              and host symbolic seconds; K2-batched on cvxqp's captured
+              fronts (backward error within LDL_BACKWARD_TOL of
+              max|L||D||L^T|, pivot signs as the plain version's), its K assembled and factored twice
+              bit-equal, and MPCSolver(kkt_system="sparse-augmented") on
+              it against solve_sparse_qp.
 Phase 6 also holds and times K8 at every launch shape of the panel
 Cholesky of the largest m that phase 15 factors (blocked_dense.
 panel_update_shapes), in float32 and float64.
@@ -165,9 +197,11 @@ kernels (times at the shape the path runs most: K1 at n = 600 float32, K8
 at (3840, 1792, 256) float32, the first and largest in-stripe update of
 the blocked cell's W (its launches include phase 15's), batched K1 at (512, 42) float32, W of the batched
 cell, and the persistent K1 with a lane axis at (4, 600) float32, W of the
-n = 500 batch; the launches of K1 include phase 12's and phase 13's, those of
-K1-batched phase 12's and phase 16's float64 runs on its batched tiers, those
-of K1-lanes phase 16's on the lane axis);
+n = 500 batch, and K2-batched at (128, 128, 128) float64, the
+augmented fronts' shape; the launches of K1 include phase 12's and phase
+13's, those of K1-batched phase 12's, phase 16's float64 runs' and phase
+17's condensed runs' on its batched tiers, those of K1-lanes phase 16's and
+17's on the lane axis, those of K2-batched phases 16 and 17's);
 the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -315,14 +349,15 @@ def device_phase(torch):
     return name, smi
 
 
-def build_phase(k1, k8):
+def build_phase(k1, k8, k2):
     phase("2. build")
     from madqp_tpu_torch.ops import _build
 
     # (source, loader, holds the tile product, so DMMA in float64)
     libs = ((k1.SOURCE, k1._library, True),
             (k1.SOURCE_BATCHED, k1._batched_library, False),
-            (k8.SOURCE, k8._library, True))
+            (k8.SOURCE, k8._library, True),
+            (k2.SOURCE, k2._library, False))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = list(pool.map(lambda lib: _build.build(lib[0]), libs))
@@ -487,9 +522,12 @@ def kernel_phase(torch, k1):
 
 def reset_counts(k1, k8):
     """Set every kernel's launch counter to 0 (just before a solve phase)."""
+    from madqp_tpu_torch.ops import ldl_batched
+
     k1.cholesky_lower.launches = 0
     k1.cholesky_lower.routes.clear()
     k8.syrk_update.launches = 0
+    ldl_batched.ldl_lower_batched.launches = 0
 
 
 def solve_checked(mt, qp, want, entry="solve", iter_slack=0, **options):
@@ -1262,15 +1300,16 @@ def sparse_phase(torch, mt, k1, k8, ref, smi):
 
     from madqp_tpu_torch.io.mps_write import write_mps
     from madqp_tpu_torch.ops.blocked_dense import panel_update_shapes
-    from madqp_tpu_torch.solver import sparse_lp
+    from madqp_tpu_torch.solver import sparse_qp
 
     phase("15. sparse LP on the card: the xlarge tier's normal-equations members, "
           "--backend sparse-device --sparse-kkt auto")
     runner = runner_module()
     want = ref["host_xlarge"]
     fails, launches, egs, matmul = [], 0, {}, set()
-    # What the dense-column member hands the host endgame.
-    orig_endgame = sparse_lp._host_endgame
+    # What the dense-column member hands the host endgame (called from the
+    # sparse drivers' shared tail, sparse_qp._solve_phases).
+    orig_endgame = sparse_qp._host_endgame
 
     def spy(qp, opts, final, info, std, t0, kkt_system="k2"):
         egs["kkt"] = kkt_system
@@ -1284,7 +1323,7 @@ def sparse_phase(torch, mt, k1, k8, ref, smi):
     print(f"  {len(instances)} instances written and read back in "
           f"{time.perf_counter() - t0:.3f} s")
     check(sorted(nm for nm, _ in instances) == sorted(want), "xlarge member names")
-    sparse_lp._host_endgame = spy
+    sparse_qp._host_endgame = spy
     try:
         for label, args in (("f64", []), ("mixed", ["--mixed-precision", "--endgame", "host"])):
             options = runner.solve_options(runner.parser().parse_args(
@@ -1344,7 +1383,7 @@ def sparse_phase(torch, mt, k1, k8, ref, smi):
                                  f"m {kkt.m} endgame {rec.get('endgame_backend')} "
                                  f"{egs.get('kkt')}")
     finally:
-        sparse_lp._host_endgame = orig_endgame
+        sparse_qp._host_endgame = orig_endgame
     print(f"  matmul assembly (dense columns; the host K2 endgame): {sorted(matmul)}")
     check("svm_3000x200_0" in matmul, "svm's dense columns did not take the matmul assembly")
     determinism_check(torch, mt, dict(instances)["gridlp_100_0"])
@@ -1390,7 +1429,8 @@ def front_schedule(kkt):
     from madqp_tpu_torch.ops import sparse_chol as SC
 
     items, stacks = [], 0
-    for it in kkt.symb.schedule:
+    symb = kkt.bs if hasattr(kkt, "bs") else kkt.symb   # the augmented KKT's, or the others'
+    for it in symb.schedule:
         steps = it.steps if isinstance(it, SC._BucketScan) else (
             it.count if isinstance(it, SC._Chain) else 1)
         lanes = 1 if isinstance(it, SC._Chain) else it.count
@@ -1406,11 +1446,12 @@ def supernodal_phase(torch, mt, k1, k8, ref, smi):
     forced onto the path; K1 on the fronts captured from the bandedlp
     solve against its route's plain version and cholesky_ex; the chain
     step's two routes; the factorization twice, bit-equal.  Returns (K1
-    launches of the batched tiers, of the lane axis, worst front error,
-    front timings)."""
+    launches of the batched tiers, of the lane axis, K2-batched launches
+    (the float32 phase's fronts), worst front error, front timings)."""
     import tempfile
 
     from madqp_tpu_torch.io.mps_write import write_mps
+    from madqp_tpu_torch.ops import ldl_batched as k2
     from madqp_tpu_torch.ops import sparse_chol as SC
     from madqp_tpu_torch.solver import sparse_lp
 
@@ -1444,7 +1485,7 @@ def supernodal_phase(torch, mt, k1, k8, ref, smi):
     runs = [(SUPERNODAL, "f64", [], {}),
             (SUPERNODAL, "mixed", ["--mixed-precision", "--endgame", "host"], {}),
             *[(nm, "forced", [], {"dense_normal_limit": 0}) for nm in FORCED_SUPERNODAL]]
-    fails, batched, lanes, bandedlp_fronts = [], 0, 0, {}
+    fails, batched, lanes, ldl, bandedlp_fronts = [], 0, 0, 0, {}
     sparse_lp.DeviceSparseNormalKKT.factorize = counted
     SC.cholesky_lower_routed = captured
     try:
@@ -1460,11 +1501,13 @@ def supernodal_phase(torch, mt, k1, k8, ref, smi):
             wall = time.perf_counter() - t0
             routes = dict(k1.cholesky_lower.routes)
             n1, n8, nt = k1.cholesky_lower.launches, k8.syrk_update.launches, trials[0]
+            n2 = k2.ldl_lower_batched.launches
             kkt = last_kkt()
             stacks, items = front_schedule(kkt)
             if not isinstance(rec["status"], int):
                 fails.append(f"{label} {name}: record {rec['status']}")
                 continue
+            ldl += n2
             lanes += routes.get("persistent", 0)
             batched += n1 - routes.get("persistent", 0) - routes.get("single", 0)
             mixed = label == "mixed"
@@ -1488,16 +1531,18 @@ def supernodal_phase(torch, mt, k1, k8, ref, smi):
                   f"{rec.get('endgame_backend', '-')} {rec.get('endgame_time', 0.0):.3f} s; "
                   f"{nt} factorization trials, K1 launches {n1} by route {routes} "
                   f"({per_trial} per trial; {n1 / max(rec['iter'], 1):.1f} per iteration), "
-                  f"K8 {n8}; schedule {stacks} front stacks: {items}", flush=True)
+                  f"K2-batched {n2} ({n2 / max(nt, 1):.1f} per trial), K8 {n8}; schedule "
+                  f"{stacks} front stacks: {items}", flush=True)
             ok = (rec["status"] == 1 and iter_ok and rel <= bound and kkt.mode == "batched"
                   and n8 == 0 and kkt.m == (want["m"] if name == SUPERNODAL else host[name]["m"]))
             if mixed:
-                # the float32 phase factors on the pivot-floored LDL^T (torch
-                # ops), the endgame on the host: no K1 launch
-                ok = (ok and kkt.use_ldl and n1 == 0
+                # the float32 phase factors on the pivot-floored LDL^T
+                # (K2-batched, one launch per front stack), the endgame on
+                # the host: no K1 launch
+                ok = (ok and kkt.use_ldl and n1 == 0 and n2 == stacks * nt and n2 > 0
                       and rec.get("endgame_backend") in ("host", "host-cold"))
             else:
-                ok = ok and n1 == stacks * nt and n1 > 0
+                ok = ok and n1 == stacks * nt and n1 > 0 and n2 == 0
             if name == SUPERNODAL and label == "f64":
                 bandedlp_fronts = dict(fronts)
             if not ok:
@@ -1512,7 +1557,7 @@ def supernodal_phase(torch, mt, k1, k8, ref, smi):
     check(not fails, f"supernodal sparse LP: {len(fails)} failures")
     err, times = front_kernel_check(torch, k1, bandedlp_fronts)
     supernodal_determinism(torch, mt, instances[SUPERNODAL])
-    return batched, lanes, err, times
+    return batched, lanes, ldl, err, times
 
 
 # Phase 16: K1 on the fronts of the bandedlp solve's last factorization
@@ -1627,6 +1672,396 @@ def supernodal_determinism(torch, mt, qp):
     check(bool(kkt.factor_ok(a)) and res < 1e-8, "bandedlp: supernodal KKT solve")
 
 
+# Phase 17: K2-batched against its plain version at the widths of the
+# signed fronts (w_pad is a pad class <= 128) and its batches, and the
+# xlarge QP members on the augmented and condensed systems.
+LDL_WIDTHS = (8, 16, 32, 33, 64, 96, 128)
+LDL_BATCHES = (1, 128, 1024)
+LDL_TIMED = ((128, 128), (1024, 128), (128, 32), (1024, 8))
+# the xlarge QP members with a general Hessian (augmented_xlarge), the two
+# condensed ones (condensed_xlarge), and the member of the bit-equality,
+# front and MPCSolver checks
+AUGMENTED = ("chainqp", "cvxqp", "lasso", "portfolio")
+CONDENSED = ("chainqp_50000_0", "cvxqp_20000_0")
+KRYLOV = "cvxqp_20000_0"
+QP_PROBE = "cvxqp_20000_0"
+# The condensed path's float64 iteration count moves with its fronts'
+# Cholesky rounding (ROADMAP.md Queue 3: by up to 2 between
+# Cholesky routines on the CPU tests' problems): held within this band of
+# the JAX record.
+COND_ITER_BAND = 3
+# K2-batched on the fronts of the QP probe's last factorization trial
+# (quasi-definite, ill-conditioned near the optimum): each matrix's
+# backward error max|F - L D L^T| within this bound of max(|L| |D| |L^T|),
+# the scale of the no-pivot LDL^T's error bound (gamma_n |L||D||L^T|), and
+# every pivot's sign and finiteness that of the plain version.  Relative
+# to max|F| instead, the plain version's own error on such fronts reaches
+# 1.5e-12 (chain_qp(2000)'s fronts on a CPU, element growth |L||D||L^T| /
+# |F| up to 1.5e4), and it is printed beside.
+LDL_BACKWARD_TOL = 1e-14
+
+
+def quasi_definite(torch, batch, n, dtype, seed):
+    """A stack of quasi-definite [P C^T; C -Q] matrices (P, Q SPD) and
+    their pivot signs, from `seed` with NumPy (on the card above 64M
+    entries)."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((batch, n, n))
+    M = M @ M.transpose(0, 2, 1) / n + np.eye(n)
+    k = n // 2
+    M[:, k:, k:] *= -1.0
+    s = np.ones((batch, n))
+    s[:, k:] = -1.0
+    return (torch.as_tensor(M, dtype=dtype, device="cuda"),
+            torch.as_tensor(s, dtype=dtype, device="cuda"))
+
+
+def ldl_bound_ms(batch, n, element_size, dname):
+    """Bound of `batch` no-pivot LDL^T of order n: B n^3/3 operations; each
+    lower triangle read once, L (its zero upper triangle included) and d
+    written once."""
+    return bound_ms(batch * n ** 3 / 3,
+                    batch * (n * (n + 1) // 2 + n * n + n) * element_size, dname)
+
+
+def ldl_errors(L, d, Lp, dp):
+    """max|L - Lp| / max|Lp| and max|d - dp| / max|dp|, worst matrix."""
+    eL = float(((L - Lp).abs().amax(dim=(-2, -1)) / Lp.abs().amax(dim=(-2, -1))).max())
+    ed = float(((d - dp).abs().amax(-1) / dp.abs().amax(-1)).max())
+    return eL, ed
+
+
+def ldl_kernel_phase(torch, k2):
+    """Phase 17a: K2-batched against its plain version on quasi-definite
+    stacks at LDL_WIDTHS x LDL_BATCHES, float32 and float64, with and
+    without the pivot floor; a zero pivot's inf / NaN in its own matrix
+    only; two runs bit-equal; CUDA-event times at LDL_TIMED beside the
+    plain version, the bound and two library calls for orientation only
+    (ldl_factor_ex pivots; cholesky_ex on an SPD stack).  Returns (the
+    largest float64 error at (128, 128), timings)."""
+    phase("17a. K2-batched against plain version")
+    main_err, timings, worst = 0.0, {}, {}
+    for dname in ("float32", "float64"):
+        dtype = getattr(torch, dname)
+        tol = k2.TOL[dname]
+        for B in LDL_BATCHES:
+            for n in LDL_WIDTHS:
+                F, s = quasi_definite(torch, B, n, dtype, seed=B + n)
+                for floor in (False, True):
+                    sg, fl = (s, 1e-6) if floor else (None, 0.0)
+                    before = k2.ldl_lower_batched.launches
+                    L, d = k2.ldl_lower_batched(F, sg, fl)
+                    torch.cuda.synchronize()
+                    launched = k2.ldl_lower_batched.launches - before
+                    Lp, dp = k2.ldl_batched_reference(F, sg, fl)
+                    eL, ed = ldl_errors(L, d, Lp, dp)
+                    L2, d2 = k2.ldl_lower_batched(F, sg, fl)
+                    same = bool(torch.equal(L, L2) and torch.equal(d, d2))
+                    upper = bool((torch.triu(L, 1) == 0).all())
+                    w = worst.setdefault(dname, [0.0, 0.0])
+                    w[0], w[1] = max(w[0], eL), max(w[1], ed)
+                    if dname == "float64" and (B, n) == (128, 128):
+                        main_err = max(main_err, float((L - Lp).abs().max()))
+                    check(launched == 1 and same and upper and eL <= tol and ed <= tol,
+                          f"K2 {dname} ({B}, {n}) floor={floor}: launches {launched}, "
+                          f"rel_err L {eL:.2e} d {ed:.2e} (tol {tol:g}), bit-equal {same}")
+        # a zero pivot (a zero row and column) in one matrix of the stack
+        for n in (16, 65, 128):
+            F, _ = quasi_definite(torch, 6, n, dtype, seed=n)
+            Z = F.clone()
+            Z[2, n // 3, :] = 0.0
+            Z[2, :, n // 3] = 0.0
+            L, d = k2.ldl_lower_batched(Z)
+            L0, d0 = k2.ldl_lower_batched(F)
+            finite = (torch.isfinite(L).all(dim=(-2, -1))
+                      & torch.isfinite(d).all(-1)).tolist()
+            keep = [0, 1, 3, 4, 5]
+            check(finite == [i != 2 for i in range(6)]
+                  and bool(torch.equal(L[keep], L0[keep])),
+                  f"K2 {dname} n={n}: a zero pivot reached other matrices ({finite})")
+        print(f"  {dname}: {len(LDL_BATCHES) * len(LDL_WIDTHS) * 2} stacks, worst rel_err "
+              f"L {worst[dname][0]:.2e} d {worst[dname][1]:.2e} (tol {tol:g}); one launch "
+              f"each, bit-equal twice; a zero pivot's inf/NaN stays in its own matrix")
+        for B, n in LDL_TIMED:
+            F, _ = quasi_definite(torch, B, n, dtype, seed=B * n)
+            S = F.clone()
+            S[:, n // 2:, n // 2:] *= -1.0   # SPD, the same shape
+            # ldl_factor_ex takes 0.1-3.4 s a stack on the H100:
+            # three samples of one call
+            t = {"kernel": cuda_median_ms(torch, lambda: k2.ldl_lower_batched(F)),
+                 "plain": cuda_median_ms(torch, lambda: k2.ldl_batched_reference(F),
+                                         runs=5, burst=1),
+                 "ldl_factor_ex": cuda_median_ms(torch, lambda: torch.linalg.ldl_factor_ex(F),
+                                                 runs=3, burst=1),
+                 "cholesky_ex": cuda_median_ms(torch, lambda: torch.linalg.cholesky_ex(S))}
+            t["bound"], t["bound_by"] = ldl_bound_ms(B, n, F.element_size(), dname)
+            timings[(dname, (B, n))] = t
+            print(f"  time {dname} ({B}, {n}, {n}) (ms): kernel {t['kernel']:.4f}, plain "
+                  f"{t['plain']:.3f}, bound {t['bound']:.4f} ({t['bound_by']}); for "
+                  f"orientation only: ldl_factor_ex (pivots) {t['ldl_factor_ex']:.4f}, "
+                  f"cholesky_ex on an SPD stack {t['cholesky_ex']:.4f}", flush=True)
+    return main_err, timings
+
+
+def qp_record_checks(rec, w, bound, band, optimum):
+    """(ok, rel) of a runner record against the reference's record `w`:
+    status, iterations within `band`, objective within `bound` of
+    `optimum`."""
+    if not isinstance(rec["status"], int):
+        return False, float("nan")
+    rel = rel_err(rec["objective"], optimum)
+    return (rec["status"] == 1 and rec.get("status_detail") == w["status_detail"]
+            and abs(rec["iter"] - w["iter"]) <= band and rel <= bound), rel
+
+
+def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi):
+    """Phase 17b: the xlarge QP members through the runner's --backend
+    sparse-device (auto: the augmented K2 system) in float64 and with
+    --mixed-precision --endgame host, and --sparse-kkt condensed on
+    chainqp and cvxqp (float64, and cvxqp with the krylov endgame); then
+    K2-batched on the captured fronts, one K assembled and factored twice,
+    and MPCSolver(kkt_system="sparse-augmented").  Returns (K2-batched
+    launches, K1 launches of the batched tiers and of the lane axis, front
+    timings)."""
+    import tempfile
+
+    from madqp_tpu_torch.io.mps_write import write_mps
+    from madqp_tpu_torch.ops import sparse_chol as SC
+    from madqp_tpu_torch.solver import sparse_condensed, sparse_qp
+
+    phase("17b. sparse QP on the card: the xlarge QP members through --backend "
+          "sparse-device (augmented K2; condensed K1 on chainqp and cvxqp)")
+    runner = runner_module()
+    aug, cond = ref["augmented_xlarge"], ref["condensed_xlarge"]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        for name, qp in mt.structured_suite("xlarge", seeds=(0,), families=AUGMENTED):
+            write_mps(qp, str(Path(d) / f"{name}.qps"))
+        instances = dict(runner.read_dir(d))
+    print(f"  {len(instances)} instances written and read back in "
+          f"{time.perf_counter() - t0:.3f} s")
+    check(sorted(instances) == sorted(aug), f"xlarge QP members: {sorted(instances)}")
+    # Count the factorization trials, time the host symbolic phase (the KKT's
+    # construction), and keep the probe's last trial's F11 stacks.
+    trials, symbolic, fronts = [0], [0.0], []
+    kkts = (sparse_qp.DeviceSparseAugmentedKKT, sparse_condensed.DeviceSparseCondensedKKT)
+    orig = {cls: (cls.__init__, cls.factorize) for cls in kkts}
+    orig_ldl = SC.ldl_lower_batched
+    capture = [False]
+
+    def patch(cls):
+        init, fact = orig[cls]
+
+        def timed_init(self, *a, **kw):
+            t = time.perf_counter()
+            init(self, *a, **kw)
+            symbolic[0] += time.perf_counter() - t
+
+        def counted(self, *a):
+            trials[0] += 1
+            if capture[0]:
+                fronts.clear()
+            return fact(self, *a)
+        cls.__init__, cls.factorize = timed_init, counted
+
+    def captured(F, sgn=None, floor=0.0):
+        if capture[0]:
+            fronts.append(F.clone())
+        return orig_ldl(F, sgn=sgn, floor=floor)
+
+    runs = [(nm, label, args) for nm in sorted(aug)
+            for label, args in (("f64", []), ("mixed", ["--mixed-precision", "--endgame",
+                                                         "host"]))]
+    runs += [(nm, "condensed", ["--sparse-kkt", "condensed"]) for nm in CONDENSED]
+    runs += [(KRYLOV, "krylov", ["--sparse-kkt", "condensed", "--mixed-precision",
+                                 "--endgame", "krylov"])]
+    fails, launches, k1_batched, k1_lanes = [], 0, 0, 0
+    for cls in kkts:
+        patch(cls)
+    SC.ldl_lower_batched = captured
+    try:
+        for name, label, args in runs:
+            argv = ["--backend", "sparse-device"] + args
+            if "--sparse-kkt" not in args:
+                argv += ["--sparse-kkt", "auto"]
+            options = runner.solve_options(runner.parser().parse_args(argv))
+            trials[0], symbolic[0] = 0, 0.0
+            capture[0] = name == QP_PROBE and label == "f64"
+            reset_counts(k1, k8)
+            t0 = time.perf_counter()
+            rec = runner.run_instance(name, instances[name], options)
+            wall = time.perf_counter() - t0
+            n2, n1 = k2.ldl_lower_batched.launches, k1.cholesky_lower.launches
+            routes, nt = dict(k1.cholesky_lower.routes), trials[0]
+            launches += n2
+            k1_lanes += routes.get("persistent", 0)
+            k1_batched += n1 - routes.get("persistent", 0) - routes.get("single", 0)
+            kkt = last_kkt()
+            stacks, items = front_schedule(kkt)
+            f64 = aug[name]["f64"] if name in aug else None
+            if label == "f64":
+                w = aug[name]["f64"]
+                ok, rel = qp_record_checks(rec, w, 1e-8, 1, w["objective"])
+                ok = ok and n2 == stacks * nt and n1 == 0 and kkt.m == aug[name]["m"]
+            elif label == "mixed":
+                w = aug[name]["mixed"]
+                bound = max(MIXED_RTOL, 2 * rel_err(w["objective"], f64["objective"]))
+                ok, rel = qp_record_checks(rec, w, bound, MIXED_ITER_BAND, f64["objective"])
+                ok = (ok and n1 == 0 and n2 == stacks * nt and n2 > 0
+                      and rec.get("endgame_backend") in ("host", "host-cold"))
+            else:
+                w = cond[name]["f64" if label == "condensed" else "krylov"]
+                band = COND_ITER_BAND if label == "condensed" else MIXED_ITER_BAND
+                bound = 1e-8 if label == "condensed" else MIXED_RTOL
+                ok, rel = qp_record_checks(rec, w, bound, band, cond[name]["f64"]["objective"])
+                if label == "condensed":   # K1's batched form on C's SPD fronts
+                    ok = ok and n1 == stacks * nt and n2 == 0
+                else:                      # the float32 fronts on K2-batched, then CG
+                    ok = (ok and n2 > 0 and n1 == 0
+                          and rec.get("endgame_backend") == w["endgame_backend"])
+            print(f"  {label} {name}: {rec.get('status_detail', rec['status'])} "
+                  f"iter={rec['iter']} (ref {w['iter']}) rel={rel:.2e} solve="
+                  f"{rec['total_time']:.3f} s wall={wall:.3f} s host symbolic "
+                  f"{symbolic[0]:.3f} s endgame={rec.get('endgame_backend', '-')} "
+                  f"{rec.get('endgame_time', 0.0):.3f} s; {nt} factorization trials, "
+                  f"K2-batched launches {n2} ({n2 / max(nt, 1):.1f} per trial), K1 {n1} "
+                  f"{routes}; schedule {stacks} front stacks: {items}", flush=True)
+            if not ok:
+                fails.append(f"{label} {name}: {rec.get('status_detail', rec['status'])} "
+                             f"iter {rec['iter']} (ref {w['iter']}) rel {rel:.2e} "
+                             f"K2 {n2} K1 {n1} ({stacks} x {nt})")
+    finally:
+        for cls in kkts:
+            cls.__init__, cls.factorize = orig[cls]
+        SC.ldl_lower_batched = orig_ldl
+    for msg in fails:
+        print(f"  FAIL {msg}")
+    check(not fails, f"sparse QP: {len(fails)} failures")
+    times = ldl_front_check(torch, k2, fronts)
+    augmented_determinism(torch, mt, instances[QP_PROBE])
+    mpcsolver_check(mt, runner, instances[QP_PROBE], aug[QP_PROBE]["f64"])
+    print("  laplqp_150_0 not run: its host symbolic phase alone took 312 s on a "
+          "CPU (ROADMAP.md Queue 3); tests/test_torch_sparse_qp.py covers the "
+          "host-full reroute under a lowered MADQP_MAX_UPDATE_ENTRIES")
+    return launches, k1_batched, k1_lanes, times
+
+
+def ldl_front_check(torch, k2, fronts):
+    """K2-batched on the F11 stacks of the QP probe's last factorization
+    trial: each matrix's backward error within LDL_BACKWARD_TOL, every
+    pivot's sign and finiteness that of the plain version (so the same
+    factor_ok verdict), and the largest stack timed."""
+    check(bool(fronts), "no front stacks captured")
+
+    def backward(L, d, Fl):
+        """max|F - L D L^T| per matrix over max(|L||D||L^T|) and over max|F|."""
+        err = (L * d[..., None, :] @ L.mT - Fl).abs().amax(dim=(-2, -1))
+        growth = ((L.abs() * d.abs()[..., None, :]) @ L.abs().mT).amax(dim=(-2, -1))
+        return float((err / growth).max()), float((err / Fl.abs().amax(dim=(-2, -1))).max())
+
+    worst = [0.0, 0.0, 0.0, 0.0]
+    for F in fronts:
+        L, d = k2.ldl_lower_batched(F)
+        Lp, dp = k2.ldl_batched_reference(F)
+        Fl = torch.tril(F) + torch.tril(F, -1).mT
+        back, back_f = backward(L, d, Fl)
+        back_p, back_pf = backward(Lp, dp, Fl)
+        same_signs = bool(torch.equal(torch.sign(d), torch.sign(dp))
+                          and torch.equal(torch.isfinite(d), torch.isfinite(dp)))
+        worst = [max(w, v) for w, v in zip(worst, (back, back_f, back_p, back_pf))]
+        check(back <= LDL_BACKWARD_TOL and same_signs,
+              f"front stack {tuple(F.shape)}: backward error {back:.2e} (plain {back_p:.2e}), "
+              f"pivot signs equal {same_signs}")
+    F = max(fronts, key=lambda f: f.shape[0] * f.shape[-1])
+    dname = str(F.dtype).split(".")[-1]
+    t = {"kernel": cuda_median_ms(torch, lambda: k2.ldl_lower_batched(F)),
+         "plain": cuda_median_ms(torch, lambda: k2.ldl_batched_reference(F), runs=5, burst=1)}
+    t["bound"], t["bound_by"] = ldl_bound_ms(F.shape[0], F.shape[-1], F.element_size(), dname)
+    print(f"  K2-batched on {QP_PROBE}'s last trial's front stacks "
+          f"{sorted({tuple(f.shape) for f in fronts})} {dname}: worst backward error "
+          f"{worst[0]:.2e} of max|L||D||L^T| (plain {worst[2]:.2e}, bound "
+          f"{LDL_BACKWARD_TOL:g}), {worst[1]:.2e} of max|F| (plain {worst[3]:.2e}); pivot "
+          f"signs as the plain version's; {tuple(F.shape)}: kernel {t['kernel']:.4f} ms, "
+          f"plain {t['plain']:.3f} ms, bound {t['bound']:.4f} ms ({t['bound_by']})",
+          flush=True)
+    return t
+
+
+def augmented_determinism(torch, mt, qp):
+    """The probe's augmented K assembled and factored twice from one iterate
+    (a seeded Σ, δ_c = -1e-8) on the card: factors and scale bit-equal;
+    host symbolic seconds, ms per factorization and per backsolve, the KKT
+    residual of one solve within 10 times that of the same solve on the
+    CPU."""
+    from madqp_tpu_torch.solver.sparse_lp import make_problem
+    from madqp_tpu_torch.solver.sparse_qp import DeviceSparseAugmentedKKT
+
+    qp_s, _ = mt.scale_qp(mt.presolve_qp(qp)[0])
+    std = mt.build_standard_form_sparse(qp_s)[0]
+    t0 = time.perf_counter()
+    kkt = DeviceSparseAugmentedKKT(std.H, std.A)
+    symbolic = time.perf_counter() - t0
+    prob = make_problem(std, kkt, torch.float64, "cuda")
+    rng = np.random.default_rng(0)
+    pr = torch.as_tensor(rng.uniform(0.5, 2.0, std.n), device="cuda")
+    rx = torch.as_tensor(rng.standard_normal(std.n), device="cuda")
+    ry = torch.as_tensor(rng.standard_normal(std.m), device="cuda")
+    del_c = torch.tensor(-1e-8, dtype=torch.float64, device="cuda")
+    a = kkt.factorize(prob, pr, del_c)
+    b = kkt.factorize(prob, pr, del_c)
+    (pa, da, ga), (pb, db, gb) = a[0], b[0]
+    same = (all(bool(torch.equal(u, v)) for u, v in zip(pa + da, pb + db))
+            and bool(torch.equal(ga, gb)) and bool(torch.equal(a[1], b[1])))
+    fact_ms = cuda_median_ms(torch, lambda: kkt.factorize(prob, pr, del_c), runs=10, burst=1)
+    solve_ms = cuda_median_ms(torch, lambda: kkt.solve(a, rx, ry), runs=10, burst=1)
+    A, H = std.A.tocsr(), std.H.tocsr()
+    rxn, ryn, prn = rx.cpu().numpy(), ry.cpu().numpy(), pr.cpu().numpy()
+
+    def residual(dx, dy):
+        dx, dy = dx.cpu().numpy(), dy.cpu().numpy()
+        return max(float(np.abs(H @ dx + prn * dx + A.T @ dy - rxn).max()),
+                   float(np.abs(A @ dx - 1e-8 * dy - ryn).max())) / max(np.abs(rxn).max(),
+                                                                        np.abs(ryn).max())
+
+    res = residual(*kkt.solve(a, rx, ry))
+    # the same factorization and solve on the CPU (the reference's
+    # blocked_ldl on the fronts): K is quasi-definite with delta_c = -1e-8,
+    # so the residual of one solve without refinement is cond-bound there too
+    cpu = torch.device("cpu")
+    prob_c = make_problem(std, kkt, torch.float64, cpu)
+    f_c = kkt.factorize(prob_c, pr.cpu(), del_c.cpu())
+    res_cpu = residual(*kkt.solve(f_c, rx.cpu(), ry.cpu()))
+    print(f"  {qp.name} K (order {std.n + std.m}): host symbolic {symbolic:.3f} s; "
+          f"assembled and factored in {fact_ms:.3f} ms, one backsolve {solve_ms:.3f} ms; "
+          f"two factorizations bit-equal: {same}; KKT residual {res:.2e} (the CPU's "
+          f"{res_cpu:.2e}); factor_ok {bool(kkt.factor_ok(a))}", flush=True)
+    check(same, f"{qp.name}: two augmented factorizations differ")
+    check(bool(kkt.factor_ok(a)) and res <= max(10 * res_cpu, 1e-12),
+          f"{qp.name}: augmented KKT solve")
+
+
+def mpcsolver_check(mt, runner, qp, want):
+    """MPCSolver(kkt_system="sparse-augmented") on the probe's presolved and
+    scaled problem with the runner's options: the same iterations and
+    objective as solve_sparse_qp's, and the runner record's iterations."""
+    args = runner.parser().parse_args(["--backend", "sparse-device"])
+    opts = {k: v for k, v in runner.solve_options(args).items()
+            if k not in ("backend", "sparse_kkt", "kkt_system")}
+    qp_s, _ = mt.scale_qp(mt.presolve_qp(qp)[0])
+    t0 = time.perf_counter()
+    st = mt.MPCSolver(qp_s, kkt_system="sparse-augmented", **opts).solve()
+    secs = time.perf_counter() - t0
+    ref = mt.solve_sparse_qp(qp_s, **opts)
+    print(f"  MPCSolver(kkt_system='sparse-augmented') on {qp.name}: {st.status.name} "
+          f"iter={st.iter} (solve_sparse_qp {ref.iter}, JAX record {want['iter']}) "
+          f"objective={st.objective!r} (solve_sparse_qp {ref.objective!r}) {secs:.3f} s",
+          flush=True)
+    check(st.status == ref.status == mt.Status.SOLVE_SUCCEEDED and st.iter == ref.iter
+          and abs(st.iter - want["iter"]) <= 1
+          and rel_err(st.objective, ref.objective) <= 1e-12,
+          f"{qp.name}: MPCSolver differs from solve_sparse_qp")
+
+
 def main():
     import torch
 
@@ -1634,6 +2069,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import madqp_tpu_torch as mt
+    from madqp_tpu_torch.ops import ldl_batched as k2
     from madqp_tpu_torch.ops import pallas_chol as k1
     from madqp_tpu_torch.ops import syrk as k8
 
@@ -1641,7 +2077,7 @@ def main():
     ref = json.loads(ref_path.read_text())
 
     name, smi = device_phase(torch)
-    build_phase(k1, k8)
+    build_phase(k1, k8, k2)
     k1_err, k1_times = kernel_phase(torch, k1)
     k1_launches, k1_fact = main_path_phase(mt, k1, k8, ref)
     large_phase(mt, k1, ref)
@@ -1657,12 +2093,15 @@ def main():
     pipe_launches = pipeline_phase(mt, k1, k8, ref, smi)
     host_phase(torch, mt, k1, k8, ref, smi)
     sparse_launches = sparse_phase(torch, mt, k1, k8, ref, smi)
-    sn_batched, sn_lanes, _, _ = supernodal_phase(torch, mt, k1, k8, ref, smi)
+    sn_batched, sn_lanes, sn_ldl, _, _ = supernodal_phase(torch, mt, k1, k8, ref, smi)
+    k2_err, k2_times = ldl_kernel_phase(torch, k2)
+    qp_ldl, qp_batched, qp_lanes, _ = sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi)
 
     t600 = k1_times[("float32", 600)]
     t8 = k8_times[("float32", (3840, 1792, 256))]
     tb = kb_times[("float32", (512, 42))]
     tl = kb_times[("float32", (4, 600))]
+    t2 = k2_times[("float64", (128, 128))]
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "cholesky_lower",
@@ -1693,7 +2132,7 @@ def main():
         "route": "cuda",
         "source": "madqp_tpu_torch/csrc/cholesky_batched.cu",
         "replaces": "madqp_tpu/ops/pallas_chol.py:158",
-        "launches": kb_launches + ts_batched + sn_batched,
+        "launches": kb_launches + ts_batched + sn_batched + qp_batched,
         "max_abs_err": kb_err,
         "ms": tb["kernel"],
         "plain_ms": tb["plain"],
@@ -1705,13 +2144,25 @@ def main():
         "route": "cuda",
         "source": "madqp_tpu_torch/csrc/cholesky.cu",
         "replaces": "madqp_tpu/ops/pallas_chol.py:158",
-        "launches": kl_launches + sn_lanes,
+        "launches": kl_launches + sn_lanes + qp_lanes,
         "max_abs_err": kl_err,
         "ms": tl["kernel"],
         "plain_ms": tl["plain"],
         "bound_ms": tl["bound"],
         "bound_by": tl["bound_by"],
         "library_ms": tl["torch.linalg.cholesky_ex"],
+    }, {
+        "name": "K2-batched",
+        "route": "cuda",
+        "source": "madqp_tpu_torch/csrc/ldl_batched.cu",
+        "replaces": "madqp_tpu/ops/blocked_dense.py:37 via madqp_tpu/ops/sparse_chol.py:1306",
+        "launches": sn_ldl + qp_ldl,
+        "max_abs_err": k2_err,
+        "ms": t2["kernel"],
+        "plain_ms": t2["plain"],
+        "bound_ms": t2["bound"],
+        "bound_by": t2["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -13,15 +13,19 @@ structured suite (`structured_suite`, `write_suite`) that
 `tools/run_suite_torch.py` drives; the host path (`solve_host`,
 `HostMPCSolver`: CPU tensors, SciPy matvecs and the native sparse LDL of
 `native/src/sparse_ldl.cpp`, bound by `madqp_tpu_torch.native`); and the
-sparse LP on the device (`solve_sparse_lp`, `solve_sparse_qp`: the normal
-equations assembled on the card and factored as one dense matrix).
+sparse LP and QP on the device (`solve_sparse_lp`, `solve_sparse_qp`,
+`solve_sparse_condensed`: the normal equations, the augmented K2 system and
+the condensed K1 system assembled on the card, the first factored as one
+dense matrix or by the supernodal Cholesky, the others by the supernodal
+Cholesky or the signed supernodal LDL^T).
 The reference's Pallas kernels are hand-written CUDA kernels here: the
 Cholesky (K1: `ops/pallas_chol.py`, `csrc/cholesky.cu`), selected with
 `linear_solver="pallas"`, and the rank-k update (K8: `ops/syrk.py`,
 `csrc/syrk.cu`), the trailing update of the panel Cholesky behind
-`linear_solver="blocked"` and the sparse LP's normal matrices.  On a stack of matrices (a batch, or the
-two-stage scenarios) K1 factors every matrix in one launch
-(`csrc/cholesky_batched.cu`).
+`linear_solver="blocked"` and the sparse LP's normal matrices.  On a stack of matrices (a batch, the
+two-stage scenarios, the supernodal fronts) K1 factors every matrix in one
+launch (`csrc/cholesky_batched.cu`); the signed fronts' LDL^T is K2-batched
+(`ops/ldl_batched.py`, `csrc/ldl_batched.cu`), one launch per stack.
 
 Importing the package sets no global state: every tensor carries an
 explicit dtype (float64 by default, `factorization_dtype` for the
@@ -81,6 +85,7 @@ from .solver import (
     solve_host,
     solve_sparse_lp,
     solve_sparse_qp,
+    solve_sparse_condensed,
 )
 from .parallel import (
     BatchedMPCSolver,
@@ -147,6 +152,7 @@ __all__ = [
     "solve_host",
     "solve_sparse_lp",
     "solve_sparse_qp",
+    "solve_sparse_condensed",
     "BatchedMPCSolver",
     "solve_batched",
     "TwoStageProblem",

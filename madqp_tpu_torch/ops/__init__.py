@@ -4,6 +4,7 @@ from .kkt import (DenseCondensedKKT, DenseK2KKT, DenseK25KKT, DenseNormalKKT,
 from .pallas_chol import (cholesky_lower, cholesky_lower_reference,
                           dense_cholesky, select_cholesky)
 from .syrk import syrk_update, syrk_update_reference
+from .ldl_batched import ldl_batched_reference, ldl_lower_batched
 
 __all__ = [
     "blocked_dense",
@@ -20,4 +21,6 @@ __all__ = [
     "select_cholesky",
     "syrk_update",
     "syrk_update_reference",
+    "ldl_lower_batched",
+    "ldl_batched_reference",
 ]

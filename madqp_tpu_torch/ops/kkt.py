@@ -449,13 +449,6 @@ _KKT_REGISTRY = {
     "k2.5": DenseK25KKT,
 }
 
-# Formulations the reference package has and this package does not yet,
-# with the ROADMAP.md item that ports each.
-_NOT_PORTED = {
-    "sparse-augmented": "Queue 1, item 13 step 3",  # supernodal signed LDL^T
-}
-
-
 def make_kkt(name: str, fact_dtype=None, chol_backend: str = "xla",
              solve_mode: str = "chol"):
     if name == "schur":
@@ -464,10 +457,6 @@ def make_kkt(name: str, fact_dtype=None, chol_backend: str = "xla",
         from ..parallel.structured import SchurKKT
 
         return SchurKKT(fact_dtype=fact_dtype, chol_backend=chol_backend)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"kkt_system={name!r} is not ported yet "
-            f"(ROADMAP.md {_NOT_PORTED[name]})")
     try:
         cls = _KKT_REGISTRY[name]
     except KeyError:

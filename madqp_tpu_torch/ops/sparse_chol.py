@@ -32,10 +32,12 @@ twin of the route the card takes); L11^-1 is a triangular solve against
 the identity, L21 = F21 L11^-T and U = F22 - L21 L21^T are batched
 products.  The reference computes the same factor as blocked_ldl + sqrt(d)
 (L11 = Lu sqrt(d)).  A front that is not SPD gives NaN on its diagonal,
-which `factor_ok_batched` reports.  The pivot-floored LDL^T of the float32
-phase (`factorize_batched_ldl`) runs the port's torch `blocked_ldl` (K2,
-ROADMAP.md Queue 2).  `lax.scan` over a `_BucketScan`'s rounds or a
-`_Chain`'s steps is a Python loop here.
+which `factor_ok_batched` reports.  The signed LDL^T
+(`factorize_batched_ldl`: the augmented K2 system, and the float32 phases'
+pivot-floored fronts) factors each stack's F11 by K2-batched on the card
+(`ops/ldl_batched.py::ldl_lower_batched`, `csrc/ldl_batched.cu`, one launch
+per stack), by the reference's `blocked_ldl` on the CPU.  `lax.scan` over
+a `_BucketScan`'s rounds or a `_Chain`'s steps is a Python loop here.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import scipy.sparse as sp
 import torch
 
 from .blocked_dense import blocked_ldl, inv_unit_lower
+from .ldl_batched import ldl_lower_batched
 from .pallas_chol import cholesky_lower_routed
 from ..solver.sparse_common import segment_sum
 
@@ -1047,11 +1050,20 @@ def _chol_front(F: torch.Tensor, w_pad: int, inverse: bool):
 
 
 def _ldl_front(F: torch.Tensor, w_pad: int, sgn, floor: float, inverse: bool):
-    """Pivot-floored LDL^T of each front's leading block (`blocked_ldl`):
-    (top, L21, U, d) with top = L11 (or its inverse), Z = F21 L11^-T,
-    L21 = Z / d, U = F22 - Z L21^T."""
-    L11, d = blocked_ldl(F[:, :w_pad, :w_pad], sgn=sgn, floor=floor)
-    i11 = inv_unit_lower(L11)
+    """Signed (pivot-floored with `sgn`) LDL^T of each front's leading
+    block: (top, L21, U, d) with top = L11 (or its inverse), Z = F21
+    L11^-T, L21 = Z / d, U = F22 - Z L21^T.  On the card K2-batched
+    factors the stack (`ldl_lower_batched`, one launch) and L11^-1 is one
+    triangular solve against the identity; on the CPU the reference's
+    `blocked_ldl` and `inv_unit_lower`, so the CPU comparisons follow its
+    algorithm."""
+    if F.device.type == "cpu":
+        L11, d = blocked_ldl(F[:, :w_pad, :w_pad], sgn=sgn, floor=floor)
+        i11 = inv_unit_lower(L11)
+    else:
+        L11, d = ldl_lower_batched(F[:, :w_pad, :w_pad], sgn=sgn, floor=floor)
+        i11 = torch.linalg.solve_triangular(L11, _eye(w_pad, L11).expand_as(L11),
+                                            upper=False, unitriangular=True)
     top = i11 if inverse else L11
     if F.shape[-1] == w_pad:
         return top, None, None, d
@@ -1187,9 +1199,10 @@ def factor_ok_batched(panels) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Signed LDL^T over the same schedule: the pivot-floored route of the
-# float32 phase (all signs +1 on the normal equations, floor 1e-6,
-# `solver/sparse_lp.py`).
+# Signed LDL^T over the same schedule: the quasi-definite augmented K2
+# system (signs +1 on the primal block, -1 on the dual one,
+# `solver/sparse_qp.py`) and the pivot-floored route of the float32 phases
+# (all signs +1 on the normal and condensed systems, floor 1e-6).
 # ---------------------------------------------------------------------------
 
 

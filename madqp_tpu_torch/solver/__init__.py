@@ -4,6 +4,7 @@ from .driver import MPCSolver, autosolve, solve
 from .host import HostMPCSolver, solve_host
 from .sparse_lp import solve_sparse_lp
 from .sparse_qp import solve_sparse_qp
+from .sparse_condensed import solve_sparse_condensed
 
 __all__ = [
     "IPMState",
@@ -18,4 +19,5 @@ __all__ = [
     "solve_host",
     "solve_sparse_lp",
     "solve_sparse_qp",
+    "solve_sparse_condensed",
 ]

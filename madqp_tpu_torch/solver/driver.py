@@ -23,8 +23,13 @@ sparse device paths.
 path of an LP or a diagonal-Hessian QP: COO problem arrays and the
 supernodal normal equations (`solver/sparse_lp.py`, mode "batched"), the
 KKT taken from the pattern cache (`sparse_common.get_sparse_kernel`, kind
-"lp:auto:batched").  Its mixed-precision scheme is the sparse one: the
-float32 phase to phase1_tol, then always the warm-started float64 phase.
+"lp:auto:batched"); `kkt_system="sparse-augmented"` runs it on the
+augmented K2 system of any QP (`solver/sparse_qp.py`, kind "qp:auto").
+Their mixed-precision scheme is the sparse one: the float32 phase to
+phase1_tol, then always the warm-started float64 phase, which refactors
+in float64 or, with endgame="krylov" on the normal equations, runs float64
+CG preconditioned by the float32 factor (the augmented system has no SPD
+reduction: there "krylov" refactors in float64).
 """
 
 from __future__ import annotations
@@ -140,7 +145,7 @@ class MPCSolver:
         # reference's exception -> status taxonomy (src/solver.jl:379-380)
         # rather than escaping the constructor.
         self._construct_error = None
-        self._sparse = opts.kkt_system == "sparse-normal"
+        self._sparse = opts.kkt_system in ("sparse-normal", "sparse-augmented")
         if self._sparse:
             t0 = time.time()
             try:
@@ -184,10 +189,12 @@ class MPCSolver:
 
     def _init_sparse(self, qp, opts: IPMOptions):
         """The sparse device path: the sparse standard form, COO problem
-        arrays on the device and the supernodal normal-equations KKT (its
-        symbolic schedule per pattern, from the pattern cache)."""
+        arrays on the device and the supernodal normal-equations or
+        augmented KKT (its symbolic schedule per pattern, from the pattern
+        cache)."""
         from .sparse_common import pattern_fingerprint
         from .sparse_lp import DeviceSparseNormalKKT, make_problem
+        from .sparse_qp import DeviceSparseAugmentedKKT
 
         t0 = time.time()
         self.std, self.info, x0_int, y0_int = build_standard_form_sparse(
@@ -197,11 +204,25 @@ class MPCSolver:
         )
         fact_dtype = opts.factorization_dtype or None
         inverse = opts.solve_mode == "inverse"
-        A = self.std.A
-        self._sparse_fp = pattern_fingerprint(A, self.std.H)
-        self._sparse_make = lambda: DeviceSparseNormalKKT(A, fact_dtype=fact_dtype,
-                                                          inverse=inverse)
-        self._sparse_make_f64 = lambda: DeviceSparseNormalKKT(A, inverse=inverse)
+        A, H = self.std.A, self.std.H
+        self._sparse_fp = pattern_fingerprint(A, H)
+        if opts.kkt_system == "sparse-normal":
+            self._sparse_kind = "lp:auto:batched"
+            self._sparse_make = lambda: DeviceSparseNormalKKT(A, fact_dtype=fact_dtype,
+                                                              inverse=inverse)
+            self._sparse_make_f64 = lambda: DeviceSparseNormalKKT(A, inverse=inverse)
+            # the krylov endgame: the float32 factor kept as the
+            # preconditioner of float64 CG
+            self._sparse_make_krylov = lambda: DeviceSparseNormalKKT(
+                A, fact_dtype=fact_dtype, inverse=inverse, krylov=True,
+                krylov_tol=opts.krylov_tol, krylov_maxit=opts.krylov_maxit)
+        else:
+            self._sparse_kind = "qp:auto"
+            self._sparse_make = lambda: DeviceSparseAugmentedKKT(
+                H, A, fact_dtype=fact_dtype, inverse=inverse)
+            self._sparse_make_f64 = lambda: DeviceSparseAugmentedKKT(H, A, inverse=inverse)
+            # no SPD reduction for CG: the krylov endgame refactors in float64
+            self._sparse_make_krylov = None
         self._sparse_cfg = (opts.factorization_dtype, opts.solve_mode)
         self._bind_kernel(opts)
         dtype = torch_dtype(opts.dtype)
@@ -213,7 +234,7 @@ class MPCSolver:
         self.cnt = Counters(start_time=t0, init_time=time.time() - t0)
 
     def _bind_sparse_kernel(self, opts: IPMOptions):
-        """The sparse path's kernels (kind "lp:auto:batched"): one, or the
+        """The sparse path's kernels (`self._sparse_kind`): one, or the
         float32 phase's and the float64 phase's under the two-phase scheme
         (`sparse_common.two_phase_opts`)."""
         from .sparse_common import get_sparse_kernel, two_phase_opts
@@ -223,25 +244,25 @@ class MPCSolver:
             # plan: rebuild it on the same pattern
             self._init_sparse(self.qp, opts)
             return
-        kind = "lp:auto:batched"
+        kind = self._sparse_kind
         two_phase = (opts.factorization_dtype == "float32"
                      and opts.precision_scheme == "two-phase"
                      and opts.tol < opts.phase1_tol)
-        if opts.krylov_solve or (two_phase and opts.endgame == "krylov"):
-            from .sparse_lp import KRYLOV_ITEM
-
-            raise NotImplementedError(
-                "the krylov endgame (preconditioned CG on the normal equations) is "
-                f"not ported yet (ROADMAP.md {KRYLOV_ITEM})")
         if not two_phase:
             _, self.kernel = get_sparse_kernel(kind, self._sparse_fp, opts,
                                                self._sparse_make)
             self._phase2 = None
             return
         opts1, opts2 = two_phase_opts(opts)
+        make2 = self._sparse_make_f64
+        if opts2.krylov_solve:
+            if self._sparse_make_krylov is None:
+                opts2 = dataclasses.replace(opts2, krylov_solve=False,
+                                            factorization_dtype="")
+            else:
+                make2 = self._sparse_make_krylov
         _, self.kernel = get_sparse_kernel(kind, self._sparse_fp, opts1, self._sparse_make)
-        _, self._phase2 = get_sparse_kernel(kind, self._sparse_fp, opts2,
-                                            self._sparse_make_f64)
+        _, self._phase2 = get_sparse_kernel(kind, self._sparse_fp, opts2, make2)
 
     def _bind_kernel(self, opts: IPMOptions):
         """The MPC kernel for `opts` and, for the mixed-precision rescue,

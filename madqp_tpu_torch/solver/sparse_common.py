@@ -90,6 +90,33 @@ def segment_sum(values: torch.Tensor, lengths: torch.Tensor,
     return torch.segment_reduce(values, "sum", lengths=lengths)
 
 
+def upper_lookup(U: sp.csc_matrix):
+    """Position lookup in the value array of the sorted upper-triangle CSC
+    `U`: returns pos(i, j), the positions of the entries (i, j), i <= j
+    (arrays), by a sorted key search (the JAX package's dict of (i, j))."""
+    N = U.shape[0]
+    col = np.repeat(np.arange(N, dtype=np.int64), np.diff(U.indptr))
+    keys = col * N + U.indices.astype(np.int64)
+
+    def pos(i, j):
+        i, j = np.asarray(i, np.int64), np.asarray(j, np.int64)
+        return np.searchsorted(keys, j * N + i)
+    return pos
+
+
+def value_gather(symb, U: sp.csc_matrix) -> np.ndarray:
+    """For each entry of a supernodal schedule's permuted upper CSC
+    (`symb.Up`, `symb.Ui`), its position in the value array of U, the
+    matrix's sorted upper-triangle CSC: the permuted entry (Ui[p], j) is
+    the matrix's (perm[Ui[p]], perm[j]), stored at the upper position of
+    that pair (the JAX package's loop, by a sorted key search)."""
+    N = U.shape[0]
+    perm = np.asarray(symb.perm, np.int64)
+    col = np.repeat(np.arange(N, dtype=np.int64), np.diff(symb.Up))
+    gi, gj = perm[symb.Ui.astype(np.int64)], perm[col]
+    return upper_lookup(U)(np.minimum(gi, gj), np.maximum(gi, gj)).astype(np.int32)
+
+
 _KERNEL_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
 _KERNEL_CACHE_SIZE = 16  # each entry holds a KKT's symbolic lists (MBs)
 

@@ -36,9 +36,9 @@ Every sum is deterministic on the card: the pair lists are sorted by
 their target entry once, at symbolic time, and reduced with a sorted
 segment reduction; the scatters write unique entries.
 
-Not ported yet (it raises `NotImplementedError` naming the ROADMAP.md
-item): the krylov endgame (`endgame="krylov"`, `krylov_solve`: item 15,
-`ops/krylov.py::pcg`).
+The krylov endgame (`endgame="krylov"`, `krylov_solve`): the float32
+factorization kept as the preconditioner of float64 CG on the scaled
+normal matrix (`ops/krylov.py::pcg`), only matvecs in float64.
 """
 
 from __future__ import annotations
@@ -54,13 +54,13 @@ from ..models.qp import QuadraticProblem, build_standard_form_sparse
 from ..ops import sparse_chol as SC
 from ..ops.blocked_dense import factor_inv_chol
 from ..ops.kkt import torch_dtype
+from ..ops.krylov import pcg
 from ..utils import load_options
 from .sparse_common import (canonical_coo_vals, canonical_csc, get_sparse_kernel,
-                            measure_sparse_ls, pattern_fingerprint, resolve_endgame,
-                            segment_sum, segments, stepped_solve, two_phase_opts)
-from .sparse_qp import SparseQPProblem, _host_endgame, _host_full_solve, finish_stats
-
-KRYLOV_ITEM = "Queue 1, item 15"              # ops/krylov.py::pcg
+                            pattern_fingerprint, resolve_endgame,
+                            segment_sum, segments, two_phase_opts,
+                            upper_lookup, value_gather)
+from .sparse_qp import SparseQPProblem, _host_full_solve, _solve_phases
 
 
 class SparseLPProblem(NamedTuple):
@@ -127,14 +127,15 @@ def coo_fields(rows, cols, vals, m, n, dtype, device) -> dict:
                 col_order=idx(col_order), col_len=idx(col_len))
 
 
-def _pair_lists(A: sp.csc_matrix, S_up: sp.csc_matrix):
+def _pair_lists(A: sp.csc_matrix, S_up: sp.csc_matrix, payload=None):
     """Contribution lists of S = A D A' (lower triangle): for column k of A
     with rows R_k, every pair (i, j) in R_k x R_k with i >= j adds
     A_ik D_k A_jk to S_ij, stored at the upper entry (j, i) of S_up's CSC
     value array.  Returns (pair_p, pair_q, pair_k, pair_e) in the JAX
     package's order (column k, then entry a, then entry bq <= a), built
-    with NumPy instead of its Python loops."""
-    m = A.shape[0]
+    with NumPy instead of its Python loops; pair_p and pair_q address A's
+    value array, or `payload[...]` of it when given (the condensed system
+    passes A0^T with A0's CSC positions as payload)."""
     indptr, indices = A.indptr.astype(np.int64), A.indices.astype(np.int64)
     nnz = indices.shape[0]
     col = np.repeat(np.arange(A.shape[1], dtype=np.int64), np.diff(indptr))
@@ -144,10 +145,10 @@ def _pair_lists(A: sp.csc_matrix, S_up: sp.csc_matrix):
     start = np.repeat(np.cumsum(reps) - reps, reps)
     pair_q = np.repeat(lo, reps) + (np.arange(pair_p.shape[0], dtype=np.int64) - start)
     pair_k = col[pair_p]
-    # upper entry (row jb, column ia) of S_up: position by (column, row) key
-    up_col = np.repeat(np.arange(m, dtype=np.int64), np.diff(S_up.indptr))
-    keys = up_col * m + S_up.indices.astype(np.int64)
-    pair_e = np.searchsorted(keys, indices[pair_p] * m + indices[pair_q])
+    # the upper entry (row jb, column ia) of S_up
+    pair_e = upper_lookup(S_up)(indices[pair_q], indices[pair_p])
+    if payload is not None:
+        pair_p, pair_q = payload[pair_p], payload[pair_q]
     return pair_p, pair_q, pair_k, pair_e
 
 
@@ -165,11 +166,13 @@ class DeviceSparseNormalKKT:
 
     def __init__(self, A: sp.spmatrix, order: str = "auto", max_supernode: int = 128,
                  mode: str = "batched", fact_dtype=None, inverse: bool = False,
-                 krylov: bool = False, schedule_mode: str = "greedy"):
-        if krylov:
-            raise NotImplementedError(
-                "the krylov endgame (preconditioned CG on the normal equations) is "
-                f"not ported yet (ROADMAP.md {KRYLOV_ITEM})")
+                 krylov: bool = False, krylov_tol: float = 1e-12, krylov_maxit: int = 64,
+                 schedule_mode: str = "greedy"):
+        # krylov: the (float32) factorization as the preconditioner of
+        # float64 CG on the scaled normal matrix (options.endgame="krylov")
+        self.krylov = krylov
+        self.krylov_tol = float(krylov_tol)
+        self.krylov_maxit = int(krylov_maxit)
         self.fact_dtype = torch_dtype(fact_dtype) if fact_dtype else None
         self.inverse = inverse
         self.mode = mode
@@ -227,7 +230,7 @@ class DeviceSparseNormalKKT:
                                            schedule_mode=schedule_mode)
         else:
             self.symb = SC.analyze(S_pat, order=order, max_supernode=max_supernode)
-        self.value_gather = _value_gather(self.symb, S_up)
+        self.value_gather = value_gather(self.symb, S_up)
         # A float32 factorization of the (SPD, but cond ~1e8 near
         # convergence) normal matrix drives trailing pivots negative: the
         # batched mode's float32 phase takes the pivot-floored LDL^T (signs
@@ -346,10 +349,20 @@ class DeviceSparseNormalKKT:
         return dy.to(out_dtype)
 
     def solve(self, factors, rx, ry):
-        panels, D, scale, prob, _del_c = factors
+        panels, D, scale, prob, del_c = factors
         r1 = rx * D
         r2 = (prob.jac_mv(r1) - ry) * scale
-        dy = self._apply_factor(panels, r2) * scale
+        if self.krylov:
+            # float64 PCG on Ms = Ds (A D A' - del_c I) Ds, the factor as M^-1
+            def matvec(v):
+                u = scale * v
+                return scale * prob.jac_mv(D * prob.jac_rmv(u)) - del_c * scale * u
+
+            dy, _k = pcg(matvec, lambda r: self._apply_factor(panels, r), r2,
+                         tol_rel=self.krylov_tol, maxit=self.krylov_maxit)
+        else:
+            dy = self._apply_factor(panels, r2)
+        dy = dy * scale
         dx = (rx - prob.jac_rmv(dy)) * D
         return dx, dy
 
@@ -370,21 +383,6 @@ class DeviceSparseNormalKKT:
         return ok
 
 
-def _value_gather(symb, S_up: sp.csc_matrix) -> np.ndarray:
-    """For each entry of the schedule's permuted upper CSC (`symb.Up`,
-    `symb.Ui`), its position in S_up's value array: the permuted entry
-    (Ui[p], j) is S's (perm[Ui[p]], perm[j]), stored at the upper position
-    of that pair (the JAX package's loop, by a sorted key search)."""
-    m = S_up.shape[0]
-    perm = np.asarray(symb.perm, np.int64)
-    col = np.repeat(np.arange(m, dtype=np.int64), np.diff(symb.Up))
-    gi, gj = perm[symb.Ui.astype(np.int64)], perm[col]
-    lo, hi = np.minimum(gi, gj), np.maximum(gi, gj)
-    up_col = np.repeat(np.arange(m, dtype=np.int64), np.diff(S_up.indptr))
-    keys = up_col * m + S_up.indices.astype(np.int64)
-    return np.searchsorted(keys, hi * m + lo).astype(np.int32)
-
-
 def make_problem(std, kkt, dtype, device):
     """The sparse problem of the standard form `std` at `dtype` on
     `device`, its Jacobian in the KKT's canonical COO order (a
@@ -402,6 +400,14 @@ def make_problem(std, kkt, dtype, device):
         h = coo_fields(Hcoo.row, Hcoo.col, Hcoo.data, std.n, std.n, dtype, device)
         return SparseQPProblem(**base, **{f"h_{k}": v for k, v in h.items()})
     return SparseLPProblem(**base)
+
+
+def problem_arrays(std, kkt, x0, y0, dtype_name, device):
+    """(problem, lb, ub, x0, y0) of the standard form `std` and its starting
+    point at the dtype named `dtype_name` on `device` (`make_problem`)."""
+    dt = torch_dtype(dtype_name)
+    return (make_problem(std, kkt, dt, device),
+            *(torch.as_tensor(v, dtype=dt, device=device) for v in (std.lb, std.ub, x0, y0)))
 
 
 def solve_sparse_lp(qp: QuadraticProblem, order: str = "auto",
@@ -425,7 +431,8 @@ def solve_sparse_lp(qp: QuadraticProblem, order: str = "auto",
     (endgame="host", or "auto" with the native library: `HostMPCSolver`
     warm-started from the float32 iterate, on the host normal equations,
     or on the host K2 system when the assembly is "matmul") or a float64
-    phase of this path warm-started the same way.
+    phase of this path warm-started the same way: refactoring in float64
+    ("f64") or float64 CG preconditioned by the float32 factor ("krylov").
 
     Returns ExecutionStats like `solve`; `total_time` counts from entry."""
     t0 = time.time()
@@ -445,10 +452,6 @@ def solve_sparse_lp(qp: QuadraticProblem, order: str = "auto",
     two_phase = (opts.factorization_dtype == "float32"
                  and opts.precision_scheme == "two-phase"
                  and opts.tol < opts.phase1_tol)
-    if opts.krylov_solve or (two_phase and opts.endgame == "krylov"):
-        raise NotImplementedError(
-            "the krylov endgame (preconditioned CG on the normal equations) is not "
-            f"ported yet (ROADMAP.md {KRYLOV_ITEM})")
     if device.type == "cuda":
         # Full-f32 products: a float32 factorization's accuracy rests on them.
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -462,7 +465,8 @@ def solve_sparse_lp(qp: QuadraticProblem, order: str = "auto",
             lambda: DeviceSparseNormalKKT(std.A, order=order, mode=mode,
                                           fact_dtype=o.factorization_dtype or None,
                                           inverse=(o.solve_mode == "inverse"),
-                                          krylov=o.krylov_solve,
+                                          krylov=o.krylov_solve, krylov_tol=o.krylov_tol,
+                                          krylov_maxit=o.krylov_maxit,
                                           schedule_mode=o.sparse_schedule))
 
     opts1, opts2 = two_phase_opts(opts, typed_phase1=True) if two_phase else (opts, None)
@@ -473,41 +477,14 @@ def solve_sparse_lp(qp: QuadraticProblem, order: str = "auto",
         # the update-traffic cap: the whole solve runs on the host path.
         return _host_full_solve(qp, opts, t0, kkt_system="normal")
 
-    def arrays(dtype_name):
-        dt = torch_dtype(dtype_name)
-        return (make_problem(std, kkt, dt, device),
-                *(torch.as_tensor(v, dtype=dt, device=device)
-                  for v in (std.lb, std.ub, x0, y0)))
-
-    prob, lb, ub, x0d, y0d = arrays(opts1.dtype)
-    final = stepped_solve(kernel, prob, x0d, y0d, lb, ub)
-    ls_time = measure_sparse_ls(kkt, prob, final, lb, ub) if opts.measure_linear_solver else None
-    if two_phase and opts.endgame == "host":
-        # The float32 phase's iterate warm-starts the host C++ LDL solver.
-        # Dense-column patterns (matmul assembly) make S dense, where the
-        # host's sparse LDL pays O(m^3) in CSC: those hand over to the
-        # host K2 system, whose fill follows nnz(A).
-        eg_kkt = "k2" if kkt.assembly == "matmul" else "normal"
-        stats = _host_endgame(qp, opts, final, info, std, t0, kkt_system=eg_kkt)
-        if ls_time is not None:
-            stats.counters.linear_solver_time += ls_time
-        return stats
-    extra, eg_time, eg_backend = 0, 0.0, ""
-    if two_phase:
-        # float64 phase of this path from the float32 phase's iterate.
-        eg_t0 = time.time()
-        eg_backend = "device-" + opts.endgame
-        extra = final.k
+    def phase2():
         kkt2, kernel2 = kernel_for(opts2)
-        prob2, lb2, ub2, _, _ = arrays(opts2.dtype)
-        dt2 = prob2.c.dtype
-        final = stepped_solve(kernel2, prob2, final.x.to(dt2), final.y.to(dt2),
-                              lb2, ub2, warm=(final.zl.to(dt2), final.zu.to(dt2)))
-        eg_time = time.time() - eg_t0
-        if ls_time is not None:
-            ls_time += measure_sparse_ls(kkt2, prob2, final, lb2, ub2)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return finish_stats(qp, info, opts, final, time.time() - t0, extra_iters=extra,
-                        std=std, ls_time=ls_time, endgame_time=eg_time,
-                        endgame_backend=eg_backend)
+        return kkt2, kernel2, problem_arrays(std, kkt, x0, y0, opts2.dtype, device)[:3]
+
+    # The host endgame: dense-column patterns (matmul assembly) make S
+    # dense, where the host's sparse LDL pays O(m^3) in CSC: those hand over
+    # to the host K2 system, whose fill follows nnz(A).
+    return _solve_phases(qp, info, std, opts, t0, device,
+                         (kkt, kernel, problem_arrays(std, kkt, x0, y0, opts1.dtype, device)),
+                         phase2 if two_phase else None, host_kkt="k2" if kkt.assembly == "matmul" else "normal",
+                         eg_backend="device-" + opts.endgame)

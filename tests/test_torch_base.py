@@ -1,6 +1,7 @@
 """Port base layers against the JAX package: options, status, logger,
 exceptions, standard form and generators — plus the port's import hygiene
-(no JAX, no global dtype) and the NotImplementedError of unported paths."""
+(no JAX, no global dtype) and the paths that once raised NotImplementedError
+(each now against the reference)."""
 
 import dataclasses
 import io
@@ -239,8 +240,8 @@ def test_port_never_imports_jax():
     sources = [f for f in PORT_DIR.rglob("*.py")
                if "_build" not in f.relative_to(PORT_DIR).parts]  # build output
     files = sorted(sources) + [REPO / "chip_smoke.py",
-                               REPO / "tools" / "profile_torch.py",
-                               REPO / "tools" / "run_suite_torch.py"]
+                               *sorted((REPO / "tools").glob("*_torch.py"))]
+    assert REPO / "tools" / "run_suite_torch.py" in files
     assert len(files) > 10
     new_modules = {"ops/_build.py", "ops/syrk.py", "ops/blocked_dense.py",
                    "parallel/__init__.py", "parallel/batched.py", "diff.py",
@@ -248,7 +249,8 @@ def test_port_never_imports_jax():
                    "io/mps_write.py", "models/scaling.py", "models/presolve.py",
                    "models/suite.py", "native/__init__.py", "solver/host.py",
                    "solver/sparse_common.py", "solver/sparse_lp.py",
-                   "solver/sparse_qp.py", "ops/sparse_chol.py"}
+                   "solver/sparse_qp.py", "ops/sparse_chol.py", "ops/ldl_batched.py",
+                   "ops/krylov.py", "solver/sparse_condensed.py"}
     assert new_modules <= {f.relative_to(PORT_DIR).as_posix() for f in sources}
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
@@ -262,16 +264,22 @@ def test_import_leaves_default_dtype_unchanged():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    # kkt_system="sparse-normal" is ported (the supernodal normal
-    # equations); its krylov endgame is not (the case keeps its id)
+    # the sparse-normal krylov endgame and kkt_system="sparse-augmented",
+    # which raised naming ROADMAP.md's items 15 and 13 before they were
+    # ported (the cases keep their ids): each solves as the reference does
     pytest.param(dict(kkt_system="sparse-normal", factorization_dtype="float32",
                       endgame="krylov"), "item 15", id="kwargs0-item 13"),
     (dict(kkt_system="sparse-augmented"), "item 13"),
 ])
 def test_unported_paths_raise(kwargs, item):
-    qp = mt.simple_lp() if kwargs["kkt_system"] == "sparse-normal" else mt.dense_dummy_qp(6, 3)
-    with pytest.raises(NotImplementedError, match=item):
-        mt.MPCSolver(qp, device="cpu", print_level=0, **kwargs)
+    def solve(pkg, **kw):
+        qp = pkg.simple_lp() if kwargs["kkt_system"] == "sparse-normal" else pkg.dense_dummy_qp(6, 3)
+        return pkg.MPCSolver(qp, print_level=0, **kwargs, **kw).solve()
+
+    got, want = solve(mt, device="cpu"), solve(mq)
+    assert got.status == want.status == mt.Status.SOLVE_SUCCEEDED
+    assert got.iter == want.iter
+    assert got.objective == pytest.approx(want.objective, rel=1e-9, abs=1e-12)
 
 
 def test_construction_errors_match_reference():

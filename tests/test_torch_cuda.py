@@ -504,3 +504,101 @@ def test_supernodal_factorization_is_deterministic_on_card(cuda):
         out[dev.type] = a[0]
     for g, w in zip(out["cuda"], out["cpu"]):
         assert float((g.cpu() - w).abs().max()) <= 1e-12 * float(w.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# K2-batched (csrc/ldl_batched.cu) and the sparse QP paths
+# ---------------------------------------------------------------------------
+
+
+def _quasi_definite(batch, n, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((batch, n, n))
+    M = M @ M.transpose(0, 2, 1) / n + np.eye(n)
+    k = n // 2
+    M[:, k:, k:] *= -1.0
+    s = np.ones((batch, n))
+    s[:, k:] = -1.0
+    return (torch.as_tensor(M, dtype=dtype, device=device),
+            torch.as_tensor(s, dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("dname", ["float64", "float32"])
+@pytest.mark.parametrize("batch,n", [(1, 1), (64, 8), (64, 16), (33, 31), (128, 32), (128, 33),
+                                     (16, 64), (16, 65), (128, 96), (128, 128)])
+@pytest.mark.parametrize("floor", [False, True], ids=["no-floor", "floor"])
+def test_ldl_kernel_matches_plain(cuda, batch, n, dname, floor):
+    """K2-batched against its plain version on quasi-definite stacks:
+    L and d within ldl_batched.TOL of max|L| and max|d| per matrix, one
+    launch per call, two runs bit-equal."""
+    from madqp_tpu_torch.ops import ldl_batched as K2
+
+    F, s = _quasi_definite(batch, n, getattr(torch, dname), n, cuda)
+    sg, fl = (s, 1e-6) if floor else (None, 0.0)
+    before = K2.ldl_lower_batched.launches
+    L, d = K2.ldl_lower_batched(F, sg, fl)
+    torch.cuda.synchronize()
+    assert K2.ldl_lower_batched.launches == before + 1
+    Lp, dp = K2.ldl_batched_reference(F, sg, fl)
+    tol = K2.TOL[dname]
+    assert float(((L - Lp).abs().amax(dim=(-2, -1)) / Lp.abs().amax(dim=(-2, -1))).max()) <= tol
+    assert float(((d - dp).abs().amax(-1) / dp.abs().amax(-1)).max()) <= tol
+    L2, d2 = K2.ldl_lower_batched(F, sg, fl)
+    assert torch.equal(L, L2) and torch.equal(d, d2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [16, 65, 128])
+def test_ldl_kernel_zero_pivot_stays_in_its_matrix(cuda, n, dtype):
+    """A zero row and column in one matrix: inf / NaN in that matrix only,
+    the others bit-equal to a stack without it."""
+    from madqp_tpu_torch.ops import ldl_batched as K2
+
+    F, _ = _quasi_definite(6, n, dtype, 3, cuda)
+    Z = F.clone()
+    Z[2, n // 3, :] = 0.0
+    Z[2, :, n // 3] = 0.0
+    L, d = K2.ldl_lower_batched(Z)
+    L0, d0 = K2.ldl_lower_batched(F)
+    finite = (torch.isfinite(L).all(dim=(-2, -1)) & torch.isfinite(d).all(-1)).tolist()
+    assert finite == [i != 2 for i in range(6)]
+    keep = [0, 1, 3, 4, 5]
+    assert torch.equal(L[keep], L0[keep]) and torch.equal(d[keep], d0[keep])
+
+
+def test_ldl_kernel_reads_a_strided_front_view(cuda):
+    """The leading (w, w) blocks of a (count, r, r) front stack, read in
+    place, give the bits of the same blocks made contiguous."""
+    from madqp_tpu_torch.ops import ldl_batched as K2
+
+    F, s = _quasi_definite(32, 136, torch.float64, 9, cuda)
+    V = F[:, :128, :128]
+    a = K2.ldl_lower_batched(V, s[:, :128], 1e-6)
+    b = K2.ldl_lower_batched(V.contiguous(), s[:, :128], 1e-6)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    with pytest.raises(ValueError):
+        K2.ldl_lower_batched(F[:, :128, :128].mT)
+
+
+@pytest.mark.parametrize("system,options", [
+    ("augmented", {}), ("augmented", dict(factorization_dtype="float32", max_refine_steps=2)),
+    ("condensed", {}), ("condensed", dict(factorization_dtype="float32", max_refine_steps=1,
+                                          endgame="krylov"))],
+    ids=["augmented-f64", "augmented-two-phase", "condensed-f64", "condensed-krylov"])
+def test_sparse_qp_on_card_matches_cpu(cuda, system, options):
+    """solve_sparse_qp on the card (K2-batched on every signed front stack;
+    K1's batched form on the condensed float64 fronts) against the same
+    solve on the CPU: status, iterations within 1 (8 under the float32
+    phase), objective to 1e-8."""
+    from madqp_tpu_torch.ops import ldl_batched as K2
+    from madqp_tpu_torch.models.suite import chain_qp
+
+    kw = dict(kkt_system=system, tol=1e-8, print_level=0, **options)
+    before = K2.ldl_lower_batched.launches + K1.cholesky_lower.launches
+    got = mt.solve_sparse_qp(chain_qp(600), device=cuda, **kw)
+    launched = K2.ldl_lower_batched.launches + K1.cholesky_lower.launches - before
+    want = mt.solve_sparse_qp(chain_qp(600), device="cpu", **kw)
+    assert got.status == want.status == mt.Status.SOLVE_SUCCEEDED
+    assert abs(got.iter - want.iter) <= (8 if options else 1)
+    assert got.objective == pytest.approx(want.objective, rel=1e-8)
+    assert launched > 0

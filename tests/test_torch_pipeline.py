@@ -200,13 +200,12 @@ def test_repeat_takes_endgame_fields_from_the_best_warm_solve(monkeypatch, endga
 
 @pytest.mark.parametrize("backend,item", [("host", "item 12"), ("sparse-device", "item 13")])
 def test_unported_backends_raise(backend, item):
-    """The two backends that raised naming ROADMAP items 12 and 13.  The
-    host path (item 12) is ported: its record of an LP and of a QP equals
-    the reference runner's.  The sparse device path is ported for LPs and
-    diagonal Hessians (item 13 step 1): an LP's record equals the
-    reference's, while dense_dummy_qp's general Hessian records the
-    NotImplementedError of the augmented system it needs, and
-    --sparse-kkt augmented raises naming item 13's step."""
+    """The two backends that raised naming ROADMAP items 12 and 13, both
+    ported (the host path; the sparse device path for LPs and diagonal
+    Hessians, and for general QPs on the augmented and condensed
+    systems): the records of an LP and of
+    dense_dummy_qp's general Hessian equal the reference runner's, and so
+    do those of --sparse-kkt augmented and condensed through main."""
     def opts(pkg, **kw):
         o = dict(options(pkg, "dense"), backend=backend, **kw)
         o.pop("pad_mode")
@@ -217,14 +216,16 @@ def test_unported_backends_raise(backend, item):
     for make in (lambda P: P.random_lp(40, 20, seed=3), lambda P: P.dense_dummy_qp(6, 3, seed=1)):
         want = R.run_instance("x", make(mq), opts(mq))
         got = T.run_instance("x", make(mt), opts(mt, device="cpu"))
-        if backend == "sparse-device" and not make(mt).is_lp:
-            assert got["status"] == "error:NotImplementedError"
-            continue
         assert_same_record(got, want)
     if backend == "sparse-device":
-        with pytest.raises(NotImplementedError, match=f"{item} step 3"):
-            T.main(["--suite", "random_qp", "--sizes", "10", "--backend", backend,
-                    "--sparse-kkt", "augmented", "--device", "cpu"])
+        for skkt in ("augmented", "condensed"):
+            recs = T.main(["--suite", "random_qp", "--sizes", "10", "--backend", backend,
+                           "--sparse-kkt", skkt, "--device", "cpu"])
+            # the reference runner's record of the instance main generated
+            want = R.run_instance("random_qp_10", mq.random_qp(10, 5, seed=10),
+                                  dict(opts(mq), sparse_kkt=skkt))
+            assert len(recs) == 1
+            assert_same_record(recs[0], want)
     else:
         recs = T.main(["--suite", "random_qp", "--sizes", "10", "--backend", backend])
         assert [r["status"] for r in recs] == [1]

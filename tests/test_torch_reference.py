@@ -45,6 +45,14 @@ the headline options (float32 factorization, one refinement step):
     path itself ends apart from the host path (an ill-scaled member in
     float64, and any member under the float32 phase), phase 15 holds the
     card to these.
+  * augmented_xlarge: the reference runner's --backend sparse-device
+    records of the xlarge tier's QP members with a general Hessian
+    (AUGMENTED_XLARGE: the augmented K2 system under --sparse-kkt auto),
+    float64 and --mixed-precision --endgame host, with the rows after
+    presolve; condensed_xlarge: --sparse-kkt condensed on chainqp and
+    cvxqp, float64 and --mixed-precision --endgame krylov (phase 17).
+    laplqp_150 is left out: the smoke does not run it (its host symbolic
+    phase alone takes minutes).
 The card's machine has no JAX, so the smoke reads them from the file; this
 test regenerates them on the CPU and asserts the committed file still
 holds them.
@@ -398,6 +406,50 @@ def supernodal_xlarge_reference(keep=None, labels=("host", "host_mixed", "f64", 
     return out
 
 
+AUGMENTED_XLARGE = ("chainqp", "cvxqp", "lasso", "portfolio")
+CONDENSED_XLARGE = ("chainqp", "cvxqp")
+RECORD_KEYS = ("status", "status_detail", "iter", "objective", "endgame_backend")
+
+
+def _xlarge_records(families, options, rows=False):
+    """{name: {label: record}} of the reference runner on the xlarge tier's
+    `families` (seed 0, each written as an MPS/QPS file and read back)
+    under each of `options` ({label: runner options}); with `rows`, also
+    `m`, the rows after presolve."""
+    from madqp_tpu.io.mps_write import write_mps
+    from madqp_tpu.models.suite import structured_suite
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, qp in structured_suite("xlarge", seeds=(0,), families=families):
+            path = os.path.join(d, f"{name}.{'qps' if qp.H is not None else 'mps'}")
+            write_mps(qp, path)
+            qp = mq.read_mps(path)
+            out[name] = {"m": int(mq.presolve_qp(qp)[0].ncon)} if rows else {}
+            for label, opts in options.items():
+                rec = _run_suite().run_instance(name, qp, opts)
+                out[name][label] = {k: rec.get(k) for k in RECORD_KEYS}
+    return out
+
+
+def augmented_xlarge_reference():
+    """The reference runner's --backend sparse-device --sparse-kkt auto
+    records of the xlarge tier's QP members with a general Hessian
+    (AUGMENTED_XLARGE: auto takes the augmented K2 system on each), float64
+    ("f64") and --mixed-precision --endgame host ("mixed"), with `m`
+    (smoke phase 17)."""
+    return _xlarge_records(AUGMENTED_XLARGE, {"f64": sparse_options(),
+                                              "mixed": sparse_options(mixed=True)}, rows=True)
+
+
+def condensed_xlarge_reference():
+    """The same with --sparse-kkt condensed on CONDENSED_XLARGE: float64
+    ("f64") and --mixed-precision --endgame krylov ("krylov")."""
+    cond = dict(sparse_options(), sparse_kkt="condensed")
+    krylov = dict(sparse_options(mixed=True), sparse_kkt="condensed", endgame="krylov")
+    return _xlarge_records(CONDENSED_XLARGE, {"f64": cond, "krylov": krylov})
+
+
 def host_large_reference(keep=None):
     return host_tier_reference("large", keep=keep)
 
@@ -418,7 +470,9 @@ def generate_reference():
             "suite_large": suite_large_reference(), "real_mm": real_mm_reference(),
             "host_large": host_large_reference(), "host_xlarge": host_xlarge_reference(),
             "sparse_xlarge": sparse_xlarge_reference(),
-            "supernodal_xlarge": supernodal_xlarge_reference()}
+            "supernodal_xlarge": supernodal_xlarge_reference(),
+            "augmented_xlarge": augmented_xlarge_reference(),
+            "condensed_xlarge": condensed_xlarge_reference()}
 
 
 def _flatten(ref):
@@ -522,7 +576,9 @@ if __name__ == "__main__":
         makers = {"suite_large": suite_large_reference, "real_mm": real_mm_reference,
                   "host_large": host_large_reference, "host_xlarge": host_xlarge_reference,
                   "sparse_xlarge": sparse_xlarge_reference,
-                  "supernodal_xlarge": supernodal_xlarge_reference}
+                  "supernodal_xlarge": supernodal_xlarge_reference,
+                  "augmented_xlarge": augmented_xlarge_reference,
+                  "condensed_xlarge": condensed_xlarge_reference}
         ref = json.loads(REF_PATH.read_text())
         ref.update({k: makers[k]() for k in keys})
     else:

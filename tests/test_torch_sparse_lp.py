@@ -18,7 +18,9 @@ plain version there).
   trials pass differs between LAPACK builds: ROADMAP.md Queue 3).
 * The port's dense-normal solve against its own host path
   (`test_dense_normal_mode_matches_host`), `autosolve`'s sparse route,
-  and the routes that raise naming ROADMAP.md's item.
+  and the routes that once raised naming their ROADMAP.md item (the krylov
+  endgame and the augmented and condensed systems among them), each
+  against the reference.
 * The supernodal modes ("batched", and one front at a time, the
   reference's "unrolled"): the KKT's residual cases of
   tests/test_sparse_lp.py (its value gather equal to the reference's),
@@ -395,7 +397,8 @@ def test_dense_columns_endgame_rides_k2(monkeypatch):
     forces it) hands the host endgame the K2 system."""
     qp = _prepared(mt, "svm_qp", 300, 40)
     seen = {}
-    orig_endgame, orig_init = TL._host_endgame, TL.DeviceSparseNormalKKT.__init__
+    # the sparse drivers' shared tail (sparse_qp._solve_phases) calls it
+    orig_endgame, orig_init = TQ._host_endgame, TL.DeviceSparseNormalKKT.__init__
 
     def spy(qp_, opts, final, info, std, t0, kkt_system="k2"):
         seen["kkt"] = kkt_system
@@ -405,7 +408,7 @@ def test_dense_columns_endgame_rides_k2(monkeypatch):
         orig_init(self, A, **kw)
         _force_matmul(self)
 
-    monkeypatch.setattr(TL, "_host_endgame", spy)
+    monkeypatch.setattr(TQ, "_host_endgame", spy)
     monkeypatch.setattr(TL.DeviceSparseNormalKKT, "__init__", forced)
     TC._KERNEL_CACHE.clear()
     st = mt.solve_sparse_lp(qp, mode="dense", factorization_dtype="float32",
@@ -529,34 +532,42 @@ def _supernodal_route(pkg, **kw):
                                **kw)
 
 
-@pytest.mark.parametrize("call,item", [
-    (dict(mode="batched"), None),
-    (dict(mode="scan"), None),
-    (dict(dense_normal_limit=20), None),
-    (lambda: mt.solve_sparse_lp(mt.banded_sparse_lp(60, 30), endgame="krylov",
-                                factorization_dtype="float32", **CPU), "item 15"),
-    (lambda: mt.solve_sparse_lp(mt.banded_sparse_lp(60, 30), krylov_solve=True, **CPU),
-     "item 15"),
-    (lambda: mt.solve_sparse_qp(mt.random_qp(20, 10, seed=0), **CPU), "item 13 step 3"),
-    (lambda: mt.solve_sparse_qp(mt.random_qp(20, 10, seed=0), kkt_system="k2.5", **CPU),
-     "item 13 step 3"),
-    (lambda: mt.solve_sparse_qp(mt.random_qp(20, 10, seed=0), kkt_system="condensed",
-                                **CPU), "item 13 step 4"),
-    (lambda: mt.solve_sparse_qp(mt.random_qp(20, 10, seed=0), kkt_system="auto", **CPU),
-     "item 13 steps 3-4"),
-], ids=["batched", "scan", "above-dense-normal-limit", "krylov-endgame", "krylov-solve",
-        "augmented", "k2.5", "condensed", "auto-nondiagonal"])
-def test_unported_sparse_routes_raise(call, item):
-    """The krylov endgame and the augmented and condensed systems raise
-    naming their ROADMAP.md item; the supernodal routes (a dict of
-    options, item None) run and match the reference."""
-    if item is None:
-        got, want = _supernodal_route(mt, **call, **CPU), _supernodal_route(mq, **call)
-        assert got.status == mt.Status.SOLVE_SUCCEEDED
-        _compare(got, want)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        call()
+def _sparse_qp_route(pkg, **kw):
+    """A route of solve_sparse_qp on random_qp(20, 10) (a general Hessian
+    with equality rows); `kw` are the route's options."""
+    return pkg.solve_sparse_qp(pkg.random_qp(20, 10, seed=0), tol=1e-8, print_level=0, **kw)
+
+
+# route -> (solve function, its options, iterations band): the supernodal
+# routes, and the krylov endgame and the augmented and condensed systems,
+# which raised naming their ROADMAP.md items before they were ported.
+ROUTES = {
+    "batched": (_supernodal_route, dict(mode="batched"), 0),
+    "scan": (_supernodal_route, dict(mode="scan"), 0),
+    "above-dense-normal-limit": (_supernodal_route, dict(dense_normal_limit=20), 0),
+    "krylov-endgame": (_supernodal_route, dict(endgame="krylov",
+                                               factorization_dtype="float32"), ITER_BAND),
+    "krylov-solve": (_supernodal_route, dict(krylov_solve=True), 0),
+    "augmented": (_sparse_qp_route, {}, 0),
+    "k2.5": (_sparse_qp_route, dict(kkt_system="k2.5"), 0),
+    # the condensed path's float64 count moves with the fronts' Cholesky
+    # rounding (ROADMAP.md Queue 3): within 2
+    "condensed": (_sparse_qp_route, dict(kkt_system="condensed"), 2),
+    "auto-nondiagonal": (_sparse_qp_route, dict(kkt_system="auto"), 0),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_unported_sparse_routes_raise(route):
+    """Every sparse route that once raised naming its ROADMAP.md item now
+    solves and matches the reference: the supernodal routes, the krylov
+    endgame and the augmented and condensed systems."""
+    solve, kw, band = ROUTES[route]
+    got, want = solve(mt, **kw, **CPU), solve(mq, **kw)
+    assert got.status == mt.Status.SOLVE_SUCCEEDED
+    _compare(got, want, iter_band=band)
+    if route == "krylov-endgame":
+        assert got.counters.endgame_backend == want.counters.endgame_backend == "device-krylov"
 
 
 @pytest.mark.parametrize("entry", [mt.solve_sparse_lp, mt.solve_sparse_qp])
@@ -651,8 +662,10 @@ def test_batched_two_phase_matches_reference(endgame):
     assert abs(got.iter - want.iter) <= ITER_BAND
     assert got.objective == pytest.approx(ref64.objective, rel=OBJ_RTOL)
     assert got.primal_feas < 1e-8 and got.dual_feas < 1e-8
+    # the pattern cache also holds other tests' augmented / condensed KKTs
     kkt = next(k for k, _ in TC._KERNEL_CACHE.values()
-               if k.mode == "batched" and k.fact_dtype == torch.float32)
+               if isinstance(k, TL.DeviceSparseNormalKKT)
+               and k.mode == "batched" and k.fact_dtype == torch.float32)
     assert kkt.use_ldl and kkt.pivot_floor == 1e-6
 
 

@@ -32,7 +32,11 @@ seconds of the symbolic phase (the contribution lists, and the supernodal
 schedule) timed apart; K8's share of the device time; on the supernodal
 path the device time of its parts (front assembly and extend-add, the
 front factor and products, the update write-out, the forward and
-backward sweeps) from profiler ranges around them): times
+backward sweeps) from profiler ranges around them; bandedlp_30000 also
+with --mixed-precision --endgame host, whose float32 fronts K2-batched
+factors; and chainqp_50000_0, a QP with a general Hessian, on the
+augmented K2 system: K assembled by segment sums, every front stack
+factored by K2-batched): times
 unprofiled solves on the host clock after one warm-up solve, then
 profiles one solve with torch.profiler, sums kernel time by layer (K1,
 K8, library Cholesky, triangular solves, matmul, reductions,
@@ -66,6 +70,7 @@ LAYERS = (
     ("K1 batched, shared memory (a warp or a CTA per matrix)",
      ("madqp_cholesky_batched_shared",)),
     ("K1 persistent (one matrix, or a stack above n_max)", ("madqp_cholesky",)),
+    ("K2-batched (signed LDL^T of a front stack)", ("madqp_ldl_batched",)),
     ("K8 syrk_update (panel Cholesky trailing update)", ("madqp_syrk",)),
     ("library cholesky (factorize)", ("potrf", "getrf_wo_pivot", "trf4_set_info")),
     ("triangular solves (cholesky_solve)", ("trsv", "trsm")),
@@ -308,8 +313,10 @@ def profile_suite_large(torch, mt, linear_solver="pallas"):
 # in a profiler range for the profiled run.
 SUPERNODAL_PARTS = {"_assemble": "front assembly + extend-add",
                     "_chol_front": "front factor (K1) + L21, U products",
+                    "_ldl_front": "front factor (K2-batched) + L21, U products",
                     "_write_out": "update write-out",
                     "_forward": "forward sweep", "_backward": "backward sweep"}
+KKT_ASSEMBLY = "KKT assembly (segment sums)"
 
 
 def ranged(torch, module, parts):
@@ -330,13 +337,15 @@ def ranged(torch, module, parts):
     return originals
 
 
-def profile_sparse(torch, mt, name, reps=3):
-    """The xlarge member `name` (seed 0, read back from its MPS file)
-    through the suite runner's --backend sparse-device: the KKT's host
-    symbolic phase timed alone on the presolved, scaled problem (dense or
-    supernodal, as "auto" routes it), a warm-up run (its pattern then
-    cached), `reps` unprofiled runs (host seconds by stage), then one
-    profiled run, whose idle share is taken over the solve's own wall."""
+def profile_sparse(torch, mt, name, reps=3, args=()):
+    """The xlarge member `name` (seed 0, read back from its MPS/QPS file)
+    through the suite runner's --backend sparse-device (with the runner's
+    `args`): the KKT's host symbolic phase timed alone on the presolved,
+    scaled problem (the normal equations, dense or supernodal, as "auto"
+    routes an LP, or the augmented K2 system of a general Hessian), a
+    warm-up run (its pattern then cached), `reps` unprofiled runs (host
+    seconds by stage), then one profiled run, whose idle share is taken
+    over the solve's own wall."""
     import tempfile
 
     from torch.autograd import DeviceType
@@ -346,6 +355,7 @@ def profile_sparse(torch, mt, name, reps=3):
     from madqp_tpu_torch.ops import pallas_chol
     from madqp_tpu_torch.ops import sparse_chol as SC
     from madqp_tpu_torch.solver.sparse_lp import DeviceSparseNormalKKT
+    from madqp_tpu_torch.solver.sparse_qp import DeviceSparseAugmentedKKT
     from madqp_tpu_torch.utils.options import IPMOptions
 
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -357,11 +367,18 @@ def profile_sparse(torch, mt, name, reps=3):
         write_mps(qp, path)
         qp = mt.read_mps(path)
     std = mt.build_standard_form_sparse(mt.scale_qp(mt.presolve_qp(qp)[0])[0])[0]
-    mode = "dense" if std.m <= IPMOptions().dense_normal_limit else "batched"
     t0 = time.perf_counter()
-    kkt = DeviceSparseNormalKKT(std.A, mode=mode)
+    if std.H is not None and std.H.nnz:   # the xlarge QPs: a general Hessian
+        mode = "augmented"
+        kkt = DeviceSparseAugmentedKKT(std.H, std.A)
+        symb = kkt.bs
+    else:
+        mode = "dense" if std.m <= IPMOptions().dense_normal_limit else "batched"
+        kkt = DeviceSparseNormalKKT(std.A, mode=mode)
+        symb = kkt.symb
     symbolic = time.perf_counter() - t0
-    options = runner.solve_options(runner.parser().parse_args(["--backend", "sparse-device"]))
+    options = runner.solve_options(runner.parser().parse_args(
+        ["--backend", "sparse-device", *args]))
 
     def run(stages):
         rec = runner.run_instance(name, qp, options, stages=stages)
@@ -381,22 +398,27 @@ def profile_sparse(torch, mt, name, reps=3):
                   run_wall_ms=wall * 1e3, iters=rec["iter"])
     k8 = "K8 syrk_update (panel Cholesky trailing update)"
     out["K8_share_of_busy"] = out["layers_ms"].get(k8, 0.0) / out["kernel_busy_ms"]
-    cell = {"m": kkt.m, "n": kkt.n, "mode": mode, "assembly": kkt.assembly,
-            "pairs": kkt.npairs, "host_symbolic_s": symbolic, "unprofiled": runs,
-            "profiled": out}
-    if mode == "batched":
+    cell = {"m": kkt.m, "n": kkt.n, "mode": mode, "args": list(args),
+            "assembly": getattr(kkt, "assembly", "segment sums"),
+            "pairs": getattr(kkt, "npairs", None), "host_symbolic_s": symbolic,
+            "unprofiled": runs, "profiled": out}
+    if mode != "dense":
         # the parts of the numeric phase, one more run under the ranges
         pallas_chol.cholesky_lower.routes.clear()
         originals = ranged(torch, SC, SUPERNODAL_PARTS)
+        assemble = ranged(torch, DeviceSparseAugmentedKKT,
+                          {"assemble": KKT_ASSEMBLY})["assemble"]
         try:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 run({})
                 torch.cuda.synchronize()
         finally:
             SC.__dict__.update(originals)
+            DeviceSparseAugmentedKKT.assemble = assemble
+        names = {*SUPERNODAL_PARTS.values(), KKT_ASSEMBLY}
         parts, calls = collections.Counter(), collections.Counter()
         for e in prof.events():
-            if e.name in SUPERNODAL_PARTS.values() and e.device_type != DeviceType.CUDA:
+            if e.name in names and e.device_type != DeviceType.CUDA:
                 parts[e.name] += (e.device_time_total if hasattr(e, "device_time_total")
                                   else e.cuda_time_total)
                 calls[e.name] += 1
@@ -405,7 +427,7 @@ def profile_sparse(torch, mt, name, reps=3):
         cell["K1_routes_of_that_run"] = dict(pallas_chol.cholesky_lower.routes)
         cell["front_stacks"] = [(type(it).__name__, it.w_pad, it.u_pad,
                                  1 if isinstance(it, SC._Chain) else it.count,
-                                 getattr(it, "steps", 1)) for it in kkt.symb.schedule]
+                                 getattr(it, "steps", 1)) for it in symb.schedule]
     return cell
 
 
@@ -427,6 +449,9 @@ CELLS = {
     "sparse_staircase_2000": lambda torch, mt: profile_sparse(
         torch, mt, "staircase_2000p24_0"),
     "sparse_bandedlp_30000": lambda torch, mt: profile_sparse(torch, mt, "bandedlp_30000_0"),
+    "sparse_bandedlp_30000_mixed": lambda torch, mt: profile_sparse(
+        torch, mt, "bandedlp_30000_0", args=("--mixed-precision", "--endgame", "host")),
+    "sparse_chainqp_50000": lambda torch, mt: profile_sparse(torch, mt, "chainqp_50000_0"),
 }
 
 

@@ -12,10 +12,13 @@ generated suite (--suite).  The solve is the backend's: `solve` on
 --device (device, the default), `solve_host` (host: the CPU path with the
 native sparse LDL), or `solve_sparse_lp` / `solve_sparse_qp` on --device
 (sparse-device, with --sparse-kkt and --endgame): as in the reference's
-runner, the normal equations of an LP (or a diagonal-Hessian QP) are one
-dense matrix up to dense_normal_limit rows after presolve and the
-supernodal Cholesky above it (bandedlp_30000's 15000 rows).  Imports
-madqp_tpu_torch only.
+runner, `--sparse-kkt auto` takes the normal equations of an LP (or a
+diagonal-Hessian QP: one dense matrix up to dense_normal_limit rows after
+presolve, the supernodal Cholesky above it, bandedlp_30000's 15000 rows),
+the condensed K1 system of an inequality-only QP whose AᵀA stays sparse,
+and the augmented K2 system (the supernodal signed LDLᵀ) of any other QP;
+`augmented`, `normal` and `condensed` force one.  Imports madqp_tpu_torch
+only.
 
 Usage:
     python tools/run_suite_torch.py --suite structured:large --linear-solver pallas
@@ -26,6 +29,8 @@ Usage:
         --backend sparse-device --mixed-precision --endgame host
     python tools/run_suite_torch.py --suite structured:xlarge --families bandedlp \
         --backend sparse-device
+    python tools/run_suite_torch.py --suite structured:xlarge --families chainqp,cvxqp \
+        --backend sparse-device --sparse-kkt condensed --mixed-precision --endgame krylov
 
 `run_instance` is importable (`chip_smoke.py` and the tests call it).
 """
@@ -53,12 +58,6 @@ EXCLUSIONS = {
     "netlib": ["BLEND", "DFL001", "FORPLAN", "GFRD-PNC", "SIERRA"],
     "mm": ["EXDATA", "QFORPLAN", "QGFRDXPN", "VALUES"],
     "": [],
-}
-
-# --sparse-kkt systems of the reference's runner that wait on their port.
-UNPORTED_SPARSE_KKT = {
-    "augmented": "ROADMAP Queue 1 item 13 step 3 (K2, supernodal signed LDL^T)",
-    "condensed": "ROADMAP Queue 1 item 13 step 4 (condensed K1)",
 }
 
 MPS_PATTERNS = ("*.mps", "*.qps", "*.sif", "*.SIF", "*.mps.gz", "*.mps.bz2",
@@ -318,12 +317,13 @@ def parser() -> argparse.ArgumentParser:
                     default="device",
                     help="device = the dense solve on --device; host = the "
                          "CPU path with the native sparse LDL; sparse-device "
-                         "= the sparse normal equations on --device (dense "
-                         "up to dense_normal_limit rows, supernodal above)")
+                         "= the sparse KKT systems on --device (--sparse-kkt)")
     ap.add_argument("--sparse-kkt", default="auto",
                     choices=["auto", "augmented", "normal", "condensed"],
-                    help="KKT system of --backend sparse-device (augmented "
-                         "and condensed are not ported yet: they raise)")
+                    help="KKT system of --backend sparse-device: auto = "
+                         "normal for an LP or a diagonal Hessian, condensed "
+                         "for an inequality-only QP with a sparse A'A, "
+                         "augmented otherwise")
     ap.add_argument("--endgame", default="",
                     choices=["", "auto", "f64", "krylov", "host"],
                     help="two-phase endgame of --backend sparse-device "
@@ -361,9 +361,6 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = parser()
     args = ap.parse_args(argv)
-    if args.backend == "sparse-device" and args.sparse_kkt in UNPORTED_SPARSE_KKT:
-        raise NotImplementedError(f"--sparse-kkt {args.sparse_kkt} is not ported yet: "
-                                  f"{UNPORTED_SPARSE_KKT[args.sparse_kkt]}")
     options = solve_options(args)
     excluded = set(filter(None, args.exclude.split(",")))
     excluded |= set(EXCLUSIONS[args.exclude_preset])
