@@ -12,7 +12,10 @@ Phases (each raises on failure, so any failure exits non-zero):
               spills per kernel (their shared memory is dynamic, set by
               each source's smem_bytes) and count the FP64 tensor-core
               instructions (DMMA) in each library's SASS, which must be
-              there in the two that hold the tile product (float64);
+              there in the three that hold a DMMA tile product (float64:
+              K1, K8, K2-batched); K2-batched's shared tier's CTAs
+              (matrices) per SM at order 128 from the occupancy API, at
+              least ldl_batched.CTAS_PER_SM (2 in float64, 4 in float32);
   3. K1       K1 against its plain PyTorch versions in float32 and float64
               at n in SIZES: the version that follows its route's kernel
               (pallas_chol.ROUTE_REFERENCE, factor error relative to max|L|
@@ -182,11 +185,16 @@ Phases (each raises on failure, so any failure exits non-zero):
               iterations within COND_ITER_BAND of condensed_xlarge) and
               cvxqp with --mixed-precision --endgame krylov; per run the
               K2-batched and K1 launches per factorization trial, solve
-              and host symbolic seconds; K2-batched on cvxqp's captured
-              fronts (backward error within LDL_BACKWARD_TOL of
-              max|L||D||L^T|, pivot signs as the plain version's), its K assembled and factored twice
-              bit-equal, and MPCSolver(kkt_system="sparse-augmented") on
-              it against solve_sparse_qp.
+              and host symbolic seconds; K2-batched on cvxqp's
+              and chainqp's captured fronts (each member's last float64
+              trial; backward error within LDL_BACKWARD_TOL of
+              max|L||D||L^T|, pivot signs as the plain version's; each
+              member's largest stack timed beside its bound, chainqp's
+              (438, 128, 128); --save-fronts DIR keeps them for
+              tools/ldl_times_torch.py --stacks), cvxqp's K assembled and
+              factored twice bit-equal, and
+              MPCSolver(kkt_system="sparse-augmented") on it against
+              solve_sparse_qp.
 Phase 6 also holds and times K8 at every launch shape of the panel
 Cholesky of the largest m that phase 15 factors (blocked_dense.
 panel_update_shapes), in float32 and float64.
@@ -198,7 +206,7 @@ at (3840, 1792, 256) float32, the first and largest in-stripe update of
 the blocked cell's W (its launches include phase 15's), batched K1 at (512, 42) float32, W of the batched
 cell, and the persistent K1 with a lane axis at (4, 600) float32, W of the
 n = 500 batch, and K2-batched at (128, 128, 128) float64, the
-augmented fronts' shape; the launches of K1 include phase 12's and phase
+augmented fronts' shape, with the shared tier's occupancy; the launches of K1 include phase 12's and phase
 13's, those of K1-batched phase 12's, phase 16's float64 runs' and phase
 17's condensed runs' on its batched tiers, those of K1-lanes phase 16's and
 17's on the lane axis, those of K2-batched phases 16 and 17's);
@@ -349,7 +357,7 @@ def device_phase(torch):
     return name, smi
 
 
-def build_phase(k1, k8, k2):
+def build_phase(torch, k1, k8, k2):
     phase("2. build")
     from madqp_tpu_torch.ops import _build
 
@@ -357,7 +365,7 @@ def build_phase(k1, k8, k2):
     libs = ((k1.SOURCE, k1._library, True),
             (k1.SOURCE_BATCHED, k1._batched_library, False),
             (k8.SOURCE, k8._library, True),
-            (k2.SOURCE, k2._library, False))
+            (k2.SOURCE, k2._library, True))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         paths = list(pool.map(lambda lib: _build.build(lib[0]), libs))
@@ -384,6 +392,18 @@ def build_phase(k1, k8, k2):
             check(dmma > 0 or not tile, f"{path.name}: the float64 path has no DMMA")
         else:
             print(f"  {path.name}: no cuobjdump beside nvcc; SASS not read")
+    # K2-batched's shared tier: matrices (CTAs) one SM holds at once at
+    # order 128, against what its launch bounds ask for.
+    occupancy = {}
+    for dname in ("float32", "float64"):
+        occupancy[dname] = k2.occupancy(getattr(torch, dname), k2.MAX_N)
+        print(f"  K2-batched shared tier, {dname}, n = {k2.MAX_N}: {occupancy[dname]} CTAs "
+              f"(matrices) per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor; launch "
+              f"bounds {k2.CTAS_PER_SM[dname]}, {k2.WARPS[dname]} warps a CTA)")
+        check(occupancy[dname] >= k2.CTAS_PER_SM[dname],
+              f"K2-batched {dname}: {occupancy[dname]} matrices per SM, want "
+              f"{k2.CTAS_PER_SM[dname]}")
+    return occupancy
 
 
 def bound_ms(flops, nbytes, dname):
@@ -1685,12 +1705,16 @@ AUGMENTED = ("chainqp", "cvxqp", "lasso", "portfolio")
 CONDENSED = ("chainqp_50000_0", "cvxqp_20000_0")
 KRYLOV = "cvxqp_20000_0"
 QP_PROBE = "cvxqp_20000_0"
+# the members whose last float64 factorization trial's F11 stacks K2-batched
+# is checked and timed on (chainqp_50000's (438, 128, 128) is the largest
+# stack of the sparse QP path)
+FRONT_PROBES = (QP_PROBE, "chainqp_50000_0")
 # The condensed path's float64 iteration count moves with its fronts'
 # Cholesky rounding (ROADMAP.md Queue 3: by up to 2 between
 # Cholesky routines on the CPU tests' problems): held within this band of
 # the JAX record.
 COND_ITER_BAND = 3
-# K2-batched on the fronts of the QP probe's last factorization trial
+# K2-batched on the fronts of the front probes' last factorization trial
 # (quasi-definite, ill-conditioned near the optimum): each matrix's
 # backward error max|F - L D L^T| within this bound of max(|L| |D| |L^T|),
 # the scale of the no-pivot LDL^T's error bound (gamma_n |L||D||L^T|), and
@@ -1814,15 +1838,16 @@ def qp_record_checks(rec, w, bound, band, optimum):
             and abs(rec["iter"] - w["iter"]) <= band and rel <= bound), rel
 
 
-def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi):
+def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi, save_fronts=None):
     """Phase 17b: the xlarge QP members through the runner's --backend
     sparse-device (auto: the augmented K2 system) in float64 and with
     --mixed-precision --endgame host, and --sparse-kkt condensed on
     chainqp and cvxqp (float64, and cvxqp with the krylov endgame); then
-    K2-batched on the captured fronts, one K assembled and factored twice,
+    K2-batched on the captured fronts of FRONT_PROBES (saved to
+    `save_fronts`/<name>.pt if given), one K assembled and factored twice,
     and MPCSolver(kkt_system="sparse-augmented").  Returns (K2-batched
     launches, K1 launches of the batched tiers and of the lane axis, front
-    timings)."""
+    timings by probe)."""
     import tempfile
 
     from madqp_tpu_torch.io.mps_write import write_mps
@@ -1842,12 +1867,12 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi):
           f"{time.perf_counter() - t0:.3f} s")
     check(sorted(instances) == sorted(aug), f"xlarge QP members: {sorted(instances)}")
     # Count the factorization trials, time the host symbolic phase (the KKT's
-    # construction), and keep the probe's last trial's F11 stacks.
-    trials, symbolic, fronts = [0], [0.0], []
+    # construction), and keep the front probes' last trial's F11 stacks.
+    trials, symbolic, fronts = [0], [0.0], {}
     kkts = (sparse_qp.DeviceSparseAugmentedKKT, sparse_condensed.DeviceSparseCondensedKKT)
     orig = {cls: (cls.__init__, cls.factorize) for cls in kkts}
     orig_ldl = SC.ldl_lower_batched
-    capture = [False]
+    capture = [None]
 
     def patch(cls):
         init, fact = orig[cls]
@@ -1860,13 +1885,13 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi):
         def counted(self, *a):
             trials[0] += 1
             if capture[0]:
-                fronts.clear()
+                fronts[capture[0]] = []
             return fact(self, *a)
         cls.__init__, cls.factorize = timed_init, counted
 
     def captured(F, sgn=None, floor=0.0):
         if capture[0]:
-            fronts.append(F.clone())
+            fronts[capture[0]].append(F.clone())
         return orig_ldl(F, sgn=sgn, floor=floor)
 
     runs = [(nm, label, args) for nm in sorted(aug)
@@ -1886,7 +1911,7 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi):
                 argv += ["--sparse-kkt", "auto"]
             options = runner.solve_options(runner.parser().parse_args(argv))
             trials[0], symbolic[0] = 0, 0.0
-            capture[0] = name == QP_PROBE and label == "f64"
+            capture[0] = name if name in FRONT_PROBES and label == "f64" else None
             reset_counts(k1, k8)
             t0 = time.perf_counter()
             rec = runner.run_instance(name, instances[name], options)
@@ -1937,7 +1962,14 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi):
     for msg in fails:
         print(f"  FAIL {msg}")
     check(not fails, f"sparse QP: {len(fails)} failures")
-    times = ldl_front_check(torch, k2, fronts)
+    check(sorted(fronts) == sorted(FRONT_PROBES), f"fronts captured of {sorted(fronts)}")
+    times = {name: ldl_front_check(torch, k2, name, stacks) for name, stacks in fronts.items()}
+    if save_fronts:
+        Path(save_fronts).mkdir(parents=True, exist_ok=True)
+        for name, stacks in fronts.items():
+            torch.save([f.cpu() for f in stacks], Path(save_fronts) / f"{name}.pt")
+        print(f"  front stacks saved to {save_fronts}")
+    fronts.clear()
     augmented_determinism(torch, mt, instances[QP_PROBE])
     mpcsolver_check(mt, runner, instances[QP_PROBE], aug[QP_PROBE]["f64"])
     print("  laplqp_150_0 not run: its host symbolic phase alone took 312 s on a "
@@ -1946,12 +1978,12 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi):
     return launches, k1_batched, k1_lanes, times
 
 
-def ldl_front_check(torch, k2, fronts):
-    """K2-batched on the F11 stacks of the QP probe's last factorization
+def ldl_front_check(torch, k2, name, fronts):
+    """K2-batched on the F11 stacks of member `name`'s last factorization
     trial: each matrix's backward error within LDL_BACKWARD_TOL, every
     pivot's sign and finiteness that of the plain version (so the same
-    factor_ok verdict), and the largest stack timed."""
-    check(bool(fronts), "no front stacks captured")
+    factor_ok verdict), and the largest stack timed beside its bound."""
+    check(bool(fronts), f"{name}: no front stacks captured")
 
     def backward(L, d, Fl):
         """max|F - L D L^T| per matrix over max(|L||D||L^T|) and over max|F|."""
@@ -1977,7 +2009,7 @@ def ldl_front_check(torch, k2, fronts):
     t = {"kernel": cuda_median_ms(torch, lambda: k2.ldl_lower_batched(F)),
          "plain": cuda_median_ms(torch, lambda: k2.ldl_batched_reference(F), runs=5, burst=1)}
     t["bound"], t["bound_by"] = ldl_bound_ms(F.shape[0], F.shape[-1], F.element_size(), dname)
-    print(f"  K2-batched on {QP_PROBE}'s last trial's front stacks "
+    print(f"  K2-batched on {name}'s last trial's front stacks "
           f"{sorted({tuple(f.shape) for f in fronts})} {dname}: worst backward error "
           f"{worst[0]:.2e} of max|L||D||L^T| (plain {worst[2]:.2e}, bound "
           f"{LDL_BACKWARD_TOL:g}), {worst[1]:.2e} of max|F| (plain {worst[3]:.2e}); pivot "
@@ -2063,8 +2095,15 @@ def mpcsolver_check(mt, runner, qp, want):
 
 
 def main():
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--save-fronts", metavar="DIR",
+                        help="save the front stacks phase 17 captures to DIR/<member>.pt "
+                             "(tools/ldl_times_torch.py --stacks times them)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2077,7 +2116,7 @@ def main():
     ref = json.loads(ref_path.read_text())
 
     name, smi = device_phase(torch)
-    build_phase(k1, k8, k2)
+    k2_occupancy = build_phase(torch, k1, k8, k2)
     k1_err, k1_times = kernel_phase(torch, k1)
     k1_launches, k1_fact = main_path_phase(mt, k1, k8, ref)
     large_phase(mt, k1, ref)
@@ -2095,7 +2134,8 @@ def main():
     sparse_launches = sparse_phase(torch, mt, k1, k8, ref, smi)
     sn_batched, sn_lanes, sn_ldl, _, _ = supernodal_phase(torch, mt, k1, k8, ref, smi)
     k2_err, k2_times = ldl_kernel_phase(torch, k2)
-    qp_ldl, qp_batched, qp_lanes, _ = sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi)
+    qp_ldl, qp_batched, qp_lanes, _ = sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi,
+                                                      args.save_fronts)
 
     t600 = k1_times[("float32", 600)]
     t8 = k8_times[("float32", (3840, 1792, 256))]
@@ -2163,6 +2203,7 @@ def main():
         "bound_ms": t2["bound"],
         "bound_by": t2["bound_by"],
         "library_ms": None,
+        "occupancy": k2_occupancy,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -32,9 +32,11 @@ differ in conditioning and cost:
   * K2_5      — K2 with symmetric Jacobi scaling.
   * SCHUR     — the two-stage block-angular system
     (`parallel/structured.py::SchurKKT`, with `TwoStageProblem` only).
-The sparse supernodal formulations of `MPCSolver` are not ported yet:
-`make_kkt` raises `NotImplementedError` naming the ROADMAP.md item that
-ports them (the dense-normal sparse LP is `solver/sparse_lp.py`).
+The sparse device formulations are not classes of this registry:
+`MPCSolver(kkt_system="sparse-normal")` runs the normal equations of
+`solver/sparse_lp.py` (dense-normal or supernodal) and `"sparse-augmented"`
+the augmented K2 system of `solver/sparse_qp.py` on the signed supernodal
+LDLᵀ; `make_kkt` lists them among the valid names.
 
 A batch of problems (leading lane axis on every tensor: `prob.A` (B, m, n),
 `pr_diag` (B, n), `del_c` (B,)) factors through the condensed and normal

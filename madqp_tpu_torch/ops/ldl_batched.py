@@ -20,11 +20,15 @@ library call stands in for it.
   `ldl_lower_batched.launches`) or raises; a CPU tensor takes the plain
   version.  Any other device raises.
 * `ldl_batched_reference(F, sgn=None, floor=0.0)`: the plain version, in
-  PyTorch ops on any device, following the kernel's blocking and pivot
-  arithmetic: for n <= 32 the register tier's column sweep of the whole
-  matrix, above it 32-column blocks, each diagonal block by that sweep, the
-  panel by forward substitution (z L_D^T = p, L21 = z / d_D), the trailing
-  update by z L21^T.
+  PyTorch ops on any device, following the kernel's blocking, pivot
+  arithmetic and scaling: for n <= 32 the register tier's column sweep of
+  the whole matrix (l = a / d, then a -= (d l) l^T); above it 32-column
+  blocks, each diagonal block by the shared tier's sweep (l = z (1 / d),
+  then a -= l z^T), the panel by forward substitution (z L_D^T = p),
+  L21 = z (1 / d), the trailing update by L21 z^T (the products summed,
+  then subtracted).
+* `occupancy(dtype, n)`: CTAs (one matrix each) of the kernel's shared
+  tier that one SM of the current card holds at once at order n.
 
 Contract shared by both: no pivoting and no early exit; a pivot of the
 wrong sign is kept, a zero pivot gives inf or NaN in its own matrix only.
@@ -41,6 +45,11 @@ from . import _build
 SOURCE = _build.CSRC_DIR / "ldl_batched.cu"
 BLOCK = 32      # block-column width of the shared tier (BLK in ldl_batched.cu)
 MAX_N = 128     # the largest order (MAX_N in ldl_batched.cu)
+# The shared tier (32 < n <= 128): warps of a CTA, which factors one matrix,
+# and the CTAs per SM its launch bounds ask for (WARPS_F32 / WARPS_F64 and
+# CTAS_F32 / CTAS_F64 in ldl_batched.cu).
+WARPS = {"float32": 4, "float64": 7}
+CTAS_PER_SM = {"float32": 4, "float64": 2}
 # (F, L, D, sgn, floor, batch, n, batch stride, row stride, stream) -> cudaError_t
 _SIGNATURE = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
@@ -49,6 +58,7 @@ _SIGNATURES = {
     "madqp_ldl_batched_f32": _SIGNATURE,
     "madqp_ldl_batched_f64": _SIGNATURE,
     "madqp_ldl_batched_max_n": ([], ctypes.c_int),
+    "madqp_ldl_batched_occupancy": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
 }
 
 # max|L - P| / max|P| and max|d - d_P| / max|d_P| per matrix, kernel against
@@ -97,6 +107,25 @@ def _sweep(A: torch.Tensor, sgn, floor: float) -> None:
         A[..., k + 1:, k + 1:] -= torch.tril(dl[..., :, None] * l[..., None, :])
 
 
+def _sweep_tile(A: torch.Tensor, sgn, floor: float) -> None:
+    """The shared tier's sweep of a (..., m, m) diagonal block A, in place
+    (`sweep_tile`): the pivot d (floored with `sgn`), its reciprocal
+    1 / d, the column below it l = z (1 / d), the later columns' lower
+    triangle less l_r z_j.  Leaves the pivots on A's diagonal and L's
+    strict lower triangle below it."""
+    floor_t = torch.tensor(floor, dtype=A.dtype, device=A.device)
+    for k in range(A.shape[-1]):
+        d = A[..., k, k].clone()
+        if sgn is not None:
+            s = sgn[..., k]
+            d = s * torch.maximum(s * d, floor_t)
+        z = A[..., k + 1:, k].clone()
+        l = z * (1.0 / d)[..., None]
+        A[..., k, k] = d
+        A[..., k + 1:, k] = l
+        A[..., k + 1:, k + 1:] -= torch.tril(l[..., :, None] * z[..., None, :])
+
+
 def ldl_batched_reference(F: torch.Tensor, sgn=None, floor: float = 0.0):
     """The plain version of `csrc/ldl_batched.cu` (see the module
     docstring): returns (L, d)."""
@@ -106,19 +135,20 @@ def ldl_batched_reference(F: torch.Tensor, sgn=None, floor: float = 0.0):
     else:
         sgn = sgn.to(F.dtype)
     A = torch.tril(F).clone()
-    width = n if n <= BLOCK else BLOCK
-    for c0 in range(0, n, max(width, 1)):
-        c1 = min(c0 + width, n)
+    if n <= BLOCK:   # the register tier
+        _sweep(A, sgn, floor)
+    for c0 in range(0, n if n > BLOCK else 0, BLOCK):
+        c1 = min(c0 + BLOCK, n)
         D = A[..., c0:c1, c0:c1]
-        _sweep(D, None if sgn is None else sgn[..., c0:c1], floor)
+        _sweep_tile(D, None if sgn is None else sgn[..., c0:c1], floor)
         if c1 == n:
             break
         X = A[..., c1:, c0:c1]
         for j in range(c1 - c0):   # z L_D^T = p: z_c -= z_j L_D[c, j]
             X[..., j + 1:] -= X[..., j, None] * D[..., None, j + 1:, j]
         Z = X.clone()
-        X /= torch.diagonal(D, dim1=-2, dim2=-1)[..., None, :]
-        A[..., c1:, c1:] -= torch.tril(Z @ X.mT)
+        X *= 1.0 / torch.diagonal(D, dim1=-2, dim2=-1)[..., None, :]   # L21 = z (1 / d)
+        A[..., c1:, c1:] -= torch.tril(X @ Z.mT)
     d = torch.diagonal(A, dim1=-2, dim2=-1).clone()
     L = torch.tril(A, -1) + torch.eye(n, dtype=A.dtype, device=A.device)
     return L, d
@@ -136,6 +166,18 @@ def _check_max_n(lib) -> None:
 
 def _library():
     return _build.load(SOURCE, _SIGNATURES, check=_check_max_n)
+
+
+def occupancy(dtype: torch.dtype, n: int = MAX_N) -> int:
+    """CTAs of the shared tier (one matrix each) that one SM of the current
+    CUDA card holds at once at order n (32 < n <= 128), from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; raises if the query
+    fails."""
+    blocks = _library().madqp_ldl_batched_occupancy(torch.tensor([], dtype=dtype).element_size(),
+                                                      int(n))
+    if blocks < 0:
+        raise RuntimeError(f"K2-batched occupancy query failed: CUDA error {-blocks}")
+    return blocks
 
 
 def ldl_lower_batched(F: torch.Tensor, sgn=None, floor: float = 0.0):

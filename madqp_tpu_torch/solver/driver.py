@@ -606,8 +606,9 @@ def autosolve(qp: QuadraticProblem, *, device="cuda", dense_limit: int = 1500,
       backsolves) once the internal dimension reaches 2048;
     - large + sparse -> the sparse device paths with `kkt_system="auto"`
       (`solve_sparse_qp`): an LP or a diagonal-Hessian QP takes the normal
-      equations; a general Hessian raises there, naming the ROADMAP.md
-      item that ports its system.
+      equations; a general Hessian the condensed K1 system where
+      `_condensed_auto_ok` allows it (an inequality-only QP with a sparse
+      A'A), else the augmented K2 system.
     """
     m, n = qp.A.shape
     # internal dimension after slacking every range/inequality row

@@ -158,7 +158,7 @@ class IPMOptions:
     # Endgame of the sparse two-phase scheme: "f64" a float64 phase of the
     # device path, "host" the host C++ LDL solver warm-started from the
     # float32 iterate, "krylov" float64 CG preconditioned by the float32
-    # factor (not ported yet); "auto" is "host" when the native library
+    # factor (ops/krylov.py::pcg); "auto" is "host" when the native library
     # builds, else "f64".  The batched solver's "auto" and "host" re-solve
     # the lanes its float32 phase failed on the host path.
     endgame: str = "auto"
@@ -215,7 +215,7 @@ class IPMOptions:
     diverge_tol: float = 1e8
     # Sparse normal equations (solve_sparse_lp mode="auto"): m <= this is
     # assembled and factored as one dense matrix; above it the supernodal
-    # factorization (not ported yet).  The JAX package's value, tuned on a
+    # factorization (ops/sparse_chol.py).  The JAX package's value, tuned on a
     # TPU and not re-measured on the card.
     dense_normal_limit: int = 12288
     # Numerics: dtype of the solver state, and an optionally lower dtype

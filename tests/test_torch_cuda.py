@@ -580,6 +580,61 @@ def test_ldl_kernel_reads_a_strided_front_view(cuda):
         K2.ldl_lower_batched(F[:, :128, :128].mT)
 
 
+@pytest.mark.parametrize("dname", ["float64", "float32"])
+@pytest.mark.parametrize("batch", [2 * 132 + 1, 4 * 132 + 1])
+def test_ldl_kernel_partial_last_wave(cuda, batch, dname):
+    """Stacks of 2 * 132 + 1 and 4 * 132 + 1 matrices of order 128 (the
+    shared tier holds 2 (float64) or 4 (float32) matrices on each of an
+    H100's 132 SMs, so the last wave is partial): L and d within
+    ldl_batched.TOL of the plain version, one launch, bit-equal twice."""
+    from madqp_tpu_torch.ops import ldl_batched as K2
+
+    F, s = _quasi_definite(batch, 128, getattr(torch, dname), batch, cuda)
+    before = K2.ldl_lower_batched.launches
+    L, d = K2.ldl_lower_batched(F, s, 1e-6)
+    torch.cuda.synchronize()
+    assert K2.ldl_lower_batched.launches == before + 1
+    Lp, dp = K2.ldl_batched_reference(F, s, 1e-6)
+    tol = K2.TOL[dname]
+    assert float(((L - Lp).abs().amax(dim=(-2, -1)) / Lp.abs().amax(dim=(-2, -1))).max()) <= tol
+    assert float(((d - dp).abs().amax(-1) / dp.abs().amax(-1)).max()) <= tol
+    L2, d2 = K2.ldl_lower_batched(F, s, 1e-6)
+    assert torch.equal(L, L2) and torch.equal(d, d2)
+
+
+@pytest.mark.parametrize("dname", ["float64", "float32"])
+@pytest.mark.parametrize("n", [128, 97])
+def test_ldl_kernel_reads_an_unaligned_row_stride(cuda, n, dname):
+    """The leading (n, n) blocks of a (B, 131, 131) stack: a row stride of
+    131 elements, which no 16-byte copy fits, so the kernel copies the tiles
+    one element at a time: the bits of the same blocks made contiguous,
+    within ldl_batched.TOL of the plain version, bit-equal twice."""
+    from madqp_tpu_torch.ops import ldl_batched as K2
+
+    F, s = _quasi_definite(40, 131, getattr(torch, dname), 13, cuda)
+    V = F[:, :n, :n]
+    assert V.stride(1) * V.element_size() % 16 != 0
+    a = K2.ldl_lower_batched(V)
+    b = K2.ldl_lower_batched(V.contiguous())
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    Lp, dp = K2.ldl_batched_reference(V)
+    tol = K2.TOL[dname]
+    assert float(((a[0] - Lp).abs().amax(dim=(-2, -1)) / Lp.abs().amax(dim=(-2, -1))).max()) <= tol
+    assert float(((a[1] - dp).abs().amax(-1) / dp.abs().amax(-1)).max()) <= tol
+    c = K2.ldl_lower_batched(V)
+    assert all(torch.equal(u, v) for u, v in zip(a, c))
+
+
+def test_ldl_kernel_occupancy(cuda):
+    """The shared tier at order 128 holds at least 2 matrices (CTAs) per SM
+    in float64 and 4 in float32, as its launch bounds ask."""
+    from madqp_tpu_torch.ops import ldl_batched as K2
+
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        assert K2.occupancy(dtype, 128) >= K2.CTAS_PER_SM[dname]
+
+
 @pytest.mark.parametrize("system,options", [
     ("augmented", {}), ("augmented", dict(factorization_dtype="float32", max_refine_steps=2)),
     ("condensed", {}), ("condensed", dict(factorization_dtype="float32", max_refine_steps=1,

@@ -3,13 +3,13 @@ against the JAX package's `unblocked_ldl` and `blocked_ldl`
 (`madqp_tpu/ops/blocked_dense.py`), which `dense_ldl` runs for every
 signed supernodal front.
 
-The plain version follows the CUDA kernel's own blocking (the register
-tier's sweep for n <= 32, 32-column blocks with the panel by forward
-substitution above), so it sums the trailing updates in another order than
-both reference functions: L and d are held within 16 eps of the largest |L|
-and |d| per matrix (`TOL`) on quasi-definite stacks (measured on this
-file's stacks: L within 1.6 eps, d within 7.6 eps in float32 and 6.8 eps in
-float64).  `ldl_lower_batched` on a CPU tensor is the plain version.  The kernel itself is held to the plain
+The plain version follows the CUDA kernel's own blocking and pivot
+arithmetic (the register tier's sweep for n <= 32; above it 32-column
+blocks, each diagonal block by the shared tier's sweep, l = z (1 / d), the
+panel by forward substitution and L21 = z (1 / d)), so it rounds and sums
+the trailing updates in another order than both reference functions: L
+and d are held within 16 eps of the largest |L| and |d| per matrix (`TOL`)
+on quasi-definite stacks.  `ldl_lower_batched` on a CPU tensor is the plain version.  The kernel itself is held to the plain
 version on the card (tests/test_torch_cuda.py, chip_smoke.py phase 17).
 """
 
@@ -151,8 +151,52 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_the_kernel_source_matches_the_wrapper():
-    """The block width and largest order the wrapper assumes are those of
-    csrc/ldl_batched.cu (read from the source: it is built on the card)."""
+    """The block width, largest order, warps per CTA and CTAs per SM the
+    wrapper states are those of csrc/ldl_batched.cu (read from the source:
+    it is built on the card)."""
     src = K2.SOURCE.read_text()
     assert f"constexpr int BLK = {K2.BLOCK};" in src
     assert f"constexpr int MAX_N = {K2.MAX_N};" in src
+    for dname, tag in (("float32", "F32"), ("float64", "F64")):
+        assert f"constexpr int WARPS_{tag} = {K2.WARPS[dname]};" in src
+        assert f"constexpr int CTAS_{tag} = {K2.CTAS_PER_SM[dname]};" in src
+
+
+@pytest.mark.parametrize("dname", ["float32", "float64"])
+@pytest.mark.parametrize("w", [63, 96, 97, 127])
+def test_plain_version_at_the_shared_tiers_block_edges(w, dname):
+    """At the shared tier's block edges (a last block of 31, 32 or 1
+    columns, three or four blocks) L and d of the plain version against
+    JAX's unblocked_ldl and blocked_ldl within TOL per matrix, with the
+    floor."""
+    F, s = quasi_definite(4, w, dname, seed=3 * w)
+    L, d = K2.ldl_batched_reference(torch.as_tensor(F), torch.as_tensor(s), 1e-6)
+    for ref in (UNBLOCKED, BLOCKED):
+        Lj, dj = ref(jnp.asarray(F), sgn=jnp.asarray(s), floor=1e-6)
+        assert rel_err(L.numpy(), Lj, (-2, -1)) <= TOL[dname]
+        assert rel_err(d.numpy(), dj, (-1,)) <= TOL[dname]
+
+
+def test_plain_version_of_a_stack_is_each_matrix_alone():
+    """A stack larger than one CTA's share (the kernel factors one matrix
+    per CTA): every matrix of a (9, 100, 100) stack gets the bits it gets
+    alone."""
+    F, s = quasi_definite(9, 100, "float64", seed=11)
+    Ft, st = torch.as_tensor(F), torch.as_tensor(s)
+    L, d = K2.ldl_batched_reference(Ft, st, 1e-6)
+    for i in (0, 4, 8):
+        Li, di = K2.ldl_batched_reference(Ft[i:i + 1], st[i:i + 1], 1e-6)
+        assert torch.equal(L[i], Li[0]) and torch.equal(d[i], di[0])
+
+
+@pytest.mark.parametrize("dname", ["float32", "float64"])
+def test_shared_tier_scales_by_the_pivots_reciprocal(dname):
+    """Above 32 the plain version forms the kernel's l = z (1 / d): the
+    first column, in the diagonal block and in the panel below it, is
+    F's first column times the correctly rounded 1 / d_0, bit for bit."""
+    F, _ = quasi_definite(3, 40, dname, seed=2)
+    Ft = torch.as_tensor(F)
+    L, d = K2.ldl_batched_reference(Ft)
+    rinv = 1.0 / Ft[:, 0, 0]
+    assert torch.equal(d[:, 0], Ft[:, 0, 0])
+    assert torch.equal(L[:, 1:, 0], Ft[:, 1:, 0] * rinv[:, None])
