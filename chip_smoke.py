@@ -194,7 +194,26 @@ Phases (each raises on failure, so any failure exits non-zero):
               tools/ldl_times_torch.py --stacks), cvxqp's K assembled and
               factored twice bit-equal, and
               MPCSolver(kkt_system="sparse-augmented") on it against
-              solve_sparse_qp.
+              solve_sparse_qp;
+ 18. sparse batch solve_sparse_batched of 16 same-pattern instances at the
+              reference's sweep sizes (testdata's sparse_batched runs:
+              banded_sparse_lp(2000, 1000, band=5) and grid_lp(40) on
+              the normal equations in float64 and with the float32
+              factorization, chain_qp(10000) on the augmented system):
+              every lane's status, iterations (equal; within
+              MIXED_ITER_BAND with the float32 phase) and objective
+              (1e-8) against the reference's batch; K1-batched and
+              K2-batched once per front stack and factorization trial for
+              the whole batch (every stack B times as deep as one
+              instance's); the lane-stacked fronts of the first and last
+              trials against the kernels' plain versions (K1 as in phase
+              16, K2 as in phase 17, the floored float32 fronts by their
+              L D L^T against the plain version's, relative to
+              max|L||D||L^T|, and equal pivot signs); the float64 LP
+              batches twice,
+              bit-equal, their warm wall against the serial loop of the
+              port's single supernodal solves, and K1 `cta` on a captured
+              (16 x 8, 128, 128) stack against cholesky_ex.
 Phase 6 also holds and times K8 at every launch shape of the panel
 Cholesky of the largest m that phase 15 factors (blocked_dense.
 panel_update_shapes), in float32 and float64.
@@ -207,9 +226,10 @@ the blocked cell's W (its launches include phase 15's), batched K1 at (512, 42) 
 cell, and the persistent K1 with a lane axis at (4, 600) float32, W of the
 n = 500 batch, and K2-batched at (128, 128, 128) float64, the
 augmented fronts' shape, with the shared tier's occupancy; the launches of K1 include phase 12's and phase
-13's, those of K1-batched phase 12's, phase 16's float64 runs' and phase
-17's condensed runs' on its batched tiers, those of K1-lanes phase 16's and
-17's on the lane axis, those of K2-batched phases 16 and 17's);
+13's, those of K1-batched phase 12's, phase 16's float64 runs', phase
+17's condensed runs' and phase 18's on its batched tiers, those of
+K1-lanes phase 16's and 17's on the lane axis, those of K2-batched phases
+16, 17 and 18's);
 the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -257,13 +277,6 @@ SYRK_SHAPES = ((1, 1, 1), (37, 37, 5), (300, 200, 40), (3840, 1792, 256),
 SYRK_TIMED = ((3840, 1792, 256), (2048, 2048, 2048), (1792, 1792, 256),
               (768, 768, 256), (4096, 2048, 256))
 SYRK_TOL = {"float32": 1e-5, "float64": 1e-12}   # max|out - plain| / max|plain|
-# Published peaks of one H100 SXM (NVIDIA's data sheet, dense) for the
-# bounds: float32 on the CUDA cores (TF32 would lose the accuracy the
-# factorization needs); float64 on the FP64 tensor cores, which cuBLAS
-# uses (the 34 TFLOP/s of the FP64 CUDA cores is no lower bound:
-# torch.addmm beats it).
-PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
-PEAK_BYTES = 3.35e12
 # Scenario stacks at public two-stage sets' own second-stage widths (U:
 # columns, S: rows): SSN's 706 and 175 and 20-term's 124 rows with 1024
 # scenarios, storm's 528 rows with 1024 and its 1259 columns with 256 (the
@@ -407,18 +420,22 @@ def build_phase(torch, k1, k8, k2):
 
 
 def bound_ms(flops, nbytes, dname):
-    """Least time for the work on the card, and what sets it."""
-    t_ops = flops / PEAK_FLOPS[dname] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """Least time for the work on the card, and what sets it: the H100's
+    published peaks (madqp_tpu_torch/utils/roofline.py's H100: 67 TFLOP/s
+    float32 on the CUDA cores and float64 on the FP64 tensor cores, 3.35
+    TB/s)."""
+    from madqp_tpu_torch.utils import roofline
+
+    return roofline.bound_ms(flops, nbytes, dname, roofline.H100)
 
 
 def chol_bound_ms(batch, n, element_size, dname):
-    """Bound of `batch` Cholesky factors of order n: B n^3/3 operations;
-    each lower triangle read once (all a symmetric input needs) and each
-    factor, its zero upper triangle included, written once."""
-    return bound_ms(batch * n ** 3 / 3,
-                    batch * (n * (n + 1) // 2 + n * n) * element_size, dname)
+    """Bound of `batch` Cholesky factors of order n (`roofline.factor_ops`,
+    `roofline.cholesky_bytes`)."""
+    from madqp_tpu_torch.utils import roofline
+
+    return bound_ms(roofline.factor_ops(batch, n),
+                    roofline.cholesky_bytes(batch, n, element_size), dname)
 
 
 def spd_matrix(torch, n, dtype, seed=0):
@@ -635,6 +652,7 @@ def syrk_phase(torch, k8, normal_m):
     """K8 at SYRK_SHAPES, one blocked-cell trial, and every launch shape
     of the panel Cholesky of phase 15's largest S (order normal_m)."""
     from madqp_tpu_torch.ops.blocked_dense import panel_update_shapes
+    from madqp_tpu_torch.utils import roofline
 
     phase("6. K8 against plain version")
     path_err, timings = 0.0, {}
@@ -681,7 +699,7 @@ def syrk_phase(torch, k8, normal_m):
             O = torch.empty_like(C)
             each[shape] = cuda_median_ms(torch, lambda: k8.syrk_update(C, B, out=O))
         trial = sum(each[shape] for shape in shapes)
-        need = sum(k8.syrk_ops(*shape) for shape in shapes)
+        need = sum(roofline.syrk_ops(*shape) for shape in shapes)
         issued = sum(k8.syrk_tile_ops(*shape) for shape in shapes)
         bound, by = bound_ms(need, 0.0, dname)
         print(f"  {dname} one factorization trial ({len(shapes)} launches): "
@@ -717,6 +735,8 @@ def syrk_phase(torch, k8, normal_m):
 def time_syrk(torch, k8, C, B, dname):
     """Median ms of the kernel (into a preallocated out, so the inputs stay
     the same), the plain version and torch.addmm, and the bound."""
+    from madqp_tpu_torch.utils import roofline
+
     r, c = C.shape
     k = B.shape[1]
     O = torch.empty_like(C)
@@ -727,9 +747,9 @@ def time_syrk(torch, k8, C, B, dname):
         "torch.addmm": cuda_median_ms(
             torch, lambda: torch.addmm(C, B, Bc, beta=1, alpha=-1)),
     }
-    ops = k8.syrk_ops(r, c, k)
+    ops = roofline.syrk_ops(r, c, k)
     t["bound"], t["bound_by"] = bound_ms(
-        ops, (2 * r * c + r * k) * C.element_size(), dname)
+        ops, roofline.syrk_bytes(r, c, k, C.element_size()), dname)
     print(f"  time {dname} {(r, c, k)} (median of {TIMING_RUNS} bursts of {BURST}, ms): "
           + ", ".join(f"{key}={v:.4f}" for key, v in t.items() if key != "bound_by")
           + f" ({t['bound_by']}); {ops / 1e9:.3f} GFLOP needed, kernel "
@@ -740,6 +760,7 @@ def time_syrk(torch, k8, C, B, dname):
 
 def blocked_phase(torch, mt, k1, k8, ref):
     from madqp_tpu_torch.ops.blocked_dense import panel_update_shapes
+    from madqp_tpu_torch.utils import roofline
     from madqp_tpu_torch.solver.driver import bucket_shape
 
     phase("7. blocked main path: autosolve(random_qp(2000, 1000))")
@@ -754,7 +775,7 @@ def blocked_phase(torch, mt, k1, k8, ref):
     info = mt.build_standard_form_sparse(qp)[1]
     n_tot, m_tot = bucket_shape(info.n, info.m)
     shapes = panel_update_shapes(n_tot) + panel_update_shapes(m_tot)
-    need = sum(k8.syrk_ops(*shape) for shape in shapes)
+    need = sum(roofline.syrk_ops(*shape) for shape in shapes)
     issued = sum(k8.syrk_tile_ops(*shape) for shape in shapes)
     bound, by = bound_ms(need, 0.0, "float32")
     print(f"  bucketed W {n_tot}^2, S {m_tot}^2: K8 launches {launches} "
@@ -1596,8 +1617,9 @@ def front_kernel_check(torch, k1, fronts):
     trial against its route's plain version (ROUTE_TOL), and on its last
     trial's (backward error, FRONT_TOL); the first stack timed against
     cholesky_ex beside its bound; then a chain step (one front) on its
-    stack route and on the 2-D persistent launch."""
-    check(fronts.get("first") and fronts.get("last"), "no front stacks captured")
+    stack route and on the 2-D persistent launch.  A warm-started phase
+    (no well-conditioned first trial) passes only "last"."""
+    check(fronts.get("last"), "no front stacks captured")
     worst = {}
     for trial, stacks in fronts.items():
         for F in stacks:
@@ -1638,18 +1660,19 @@ def front_kernel_check(torch, k1, fronts):
     one, two = F[:1].contiguous(), F[0].contiguous()
     chain = {"stack of one": cuda_median_ms(torch, lambda: k1.cholesky_lower(one)),
              "2-D persistent": cuda_median_ms(torch, lambda: k1.cholesky_lower(two))}
+    first = worst.get("first", [float("nan")] * 3)
     print(f"  K1 on the front stacks {sorted({tuple(f.shape) for f in fronts['last']})} "
           f"{dname} ({route}): against the route's plain version, worst error "
-          f"{worst['first'][0]:.2e} on the first trial's (bound "
+          f"{first[0]:.2e} on the first trial's (bound "
           f"{k1.ROUTE_TOL[route][dname]:.0e}), {worst['last'][0]:.2e} on the last trial's "
           f"(bound n cond eps per matrix, largest cond {worst['last'][2]:.2e}); worst backward "
-          f"error {max(worst['first'][1], worst['last'][1]):.2e}; "
+          f"error {max(w[1] for w in worst.values()):.2e}; "
           f"{tuple(F.shape)}: kernel {t['kernel']:.4f} ms, plain {t['plain']:.3f} ms, "
           f"cholesky_ex {t['torch.linalg.cholesky_ex']:.4f} ms, bound {t['bound']:.4f} ms "
           f"({t['bound_by']}); a chain step (one front {F.shape[-1]}^2): {route} stack of one "
           f"{chain['stack of one']:.4f} ms, 2-D persistent {chain['2-D persistent']:.4f} ms",
           flush=True)
-    return max(worst["first"][0], worst["last"][0]), t
+    return max(w[0] for w in worst.values()), t
 
 
 def supernodal_determinism(torch, mt, qp):
@@ -1741,11 +1764,12 @@ def quasi_definite(torch, batch, n, dtype, seed):
 
 
 def ldl_bound_ms(batch, n, element_size, dname):
-    """Bound of `batch` no-pivot LDL^T of order n: B n^3/3 operations; each
-    lower triangle read once, L (its zero upper triangle included) and d
-    written once."""
-    return bound_ms(batch * n ** 3 / 3,
-                    batch * (n * (n + 1) // 2 + n * n + n) * element_size, dname)
+    """Bound of `batch` no-pivot LDL^T of order n (`roofline.factor_ops`,
+    `roofline.ldl_bytes`)."""
+    from madqp_tpu_torch.utils import roofline
+
+    return bound_ms(roofline.factor_ops(batch, n),
+                    roofline.ldl_bytes(batch, n, element_size), dname)
 
 
 def ldl_errors(L, d, Lp, dp):
@@ -1982,24 +2006,38 @@ def ldl_front_check(torch, k2, name, fronts):
     """K2-batched on the F11 stacks of member `name`'s last factorization
     trial: each matrix's backward error within LDL_BACKWARD_TOL, every
     pivot's sign and finiteness that of the plain version (so the same
-    factor_ok verdict), and the largest stack timed beside its bound."""
+    factor_ok verdict), and the largest stack timed beside its bound.  A
+    matrix whose plain factor is not finite (in a batch, a lane that has
+    stopped is still factored and its factor thrown away, as under the
+    reference's vmap) has no backward error: the kernel's must be
+    non-finite on exactly those matrices, which are counted."""
     check(bool(fronts), f"{name}: no front stacks captured")
 
-    def backward(L, d, Fl):
-        """max|F - L D L^T| per matrix over max(|L||D||L^T|) and over max|F|."""
+    def finite(L, d):
+        return torch.isfinite(L).all(dim=(-2, -1)) & torch.isfinite(d).all(-1)
+
+    def backward(L, d, Fl, keep):
+        """max|F - L D L^T| per matrix over max(|L||D||L^T|) and over max|F|,
+        on the matrices `keep`."""
+        L, d, Fl = L[keep], d[keep], Fl[keep]
+        if not L.shape[0]:
+            return 0.0, 0.0
         err = (L * d[..., None, :] @ L.mT - Fl).abs().amax(dim=(-2, -1))
         growth = ((L.abs() * d.abs()[..., None, :]) @ L.abs().mT).amax(dim=(-2, -1))
         return float((err / growth).max()), float((err / Fl.abs().amax(dim=(-2, -1))).max())
 
-    worst = [0.0, 0.0, 0.0, 0.0]
+    worst, skipped = [0.0, 0.0, 0.0, 0.0], 0
     for F in fronts:
         L, d = k2.ldl_lower_batched(F)
         Lp, dp = k2.ldl_batched_reference(F)
         Fl = torch.tril(F) + torch.tril(F, -1).mT
-        back, back_f = backward(L, d, Fl)
-        back_p, back_pf = backward(Lp, dp, Fl)
+        keep = finite(Lp, dp)
+        skipped += int((~keep).sum())
+        back, back_f = backward(L, d, Fl, keep)
+        back_p, back_pf = backward(Lp, dp, Fl, keep)
         same_signs = bool(torch.equal(torch.sign(d), torch.sign(dp))
-                          and torch.equal(torch.isfinite(d), torch.isfinite(dp)))
+                          and torch.equal(torch.isfinite(d), torch.isfinite(dp))
+                          and torch.equal(finite(L, d), keep))
         worst = [max(w, v) for w, v in zip(worst, (back, back_f, back_p, back_pf))]
         check(back <= LDL_BACKWARD_TOL and same_signs,
               f"front stack {tuple(F.shape)}: backward error {back:.2e} (plain {back_p:.2e}), "
@@ -2013,7 +2051,8 @@ def ldl_front_check(torch, k2, name, fronts):
           f"{sorted({tuple(f.shape) for f in fronts})} {dname}: worst backward error "
           f"{worst[0]:.2e} of max|L||D||L^T| (plain {worst[2]:.2e}, bound "
           f"{LDL_BACKWARD_TOL:g}), {worst[1]:.2e} of max|F| (plain {worst[3]:.2e}); pivot "
-          f"signs as the plain version's; {tuple(F.shape)}: kernel {t['kernel']:.4f} ms, "
+          f"signs as the plain version's ({skipped} matrices non-finite in both); "
+          f"{tuple(F.shape)}: kernel {t['kernel']:.4f} ms, "
           f"plain {t['plain']:.3f} ms, bound {t['bound']:.4f} ms ({t['bound_by']})",
           flush=True)
     return t
@@ -2094,6 +2133,208 @@ def mpcsolver_check(mt, runner, qp, want):
           f"{qp.name}: MPCSolver differs from solve_sparse_qp")
 
 
+# Phase 18: the shared-pattern sparse batch at the reference's sweep sizes
+# (testdata's sparse_batched runs, 16 lanes each, their options stored with
+# them).  The float64 LP runs run twice (bit-equal; the second is the warm
+# wall) and against the serial loop of the port's single supernodal solves
+# of the same instances.
+SPARSE_BATCH_TIMED = ("bandedlp_f64", "gridlp_f64")
+
+
+def sparse_batch_problems(mt, run):
+    """The instances of a sparse_batched run (chain_qp is in models.suite)."""
+    from madqp_tpu_torch.models import suite
+
+    gen = getattr(mt, run["generator"], None) or getattr(suite, run["generator"])
+    return [gen(seed=s, **run["kwargs"]) for s in run["seeds"]]
+
+
+def floored_ldl_check(torch, k2, name, fronts):
+    """K2-batched on the float32 phase's floored fronts (F, sgn, floor) of
+    every captured trial: the kernel's L D L^T within LDL_BACKWARD_TOL,
+    scaled to the dtype's rounding unit, of the plain version's (both
+    carry the same floor perturbation), relative to max(|L||D||L^T|) per
+    matrix, and the plain version's pivot signs.  Returns the worst
+    reconstruction difference; the factors' differences relative to
+    max|L| and max|d| are printed beside it (element growth amplifies
+    them: ldl_batched.TOL holds them on well-scaled stacks, phase 17a)."""
+    worst, rel = 0.0, [0.0, 0.0]
+    for trial, stacks in fronts.items():
+        for F, sgn, floor in stacks:
+            L, d = k2.ldl_lower_batched(F, sgn, floor)
+            Lp, dp = k2.ldl_batched_reference(F, sgn, floor)
+            same = bool(torch.equal(torch.sign(d), torch.sign(dp))
+                        and torch.equal(torch.isfinite(d), torch.isfinite(dp)))
+            diff = (L * d[..., None, :] @ L.mT - Lp * dp[..., None, :] @ Lp.mT)
+            growth = ((L.abs() * d.abs()[..., None, :]) @ L.abs().mT).amax(dim=(-2, -1))
+            back = float((diff.abs().amax(dim=(-2, -1)) / growth).max())
+            tol = LDL_BACKWARD_TOL * torch.finfo(F.dtype).eps / torch.finfo(torch.float64).eps
+            eL, ed = ldl_errors(L, d, Lp, dp)
+            worst, rel = max(worst, back), [max(rel[0], eL), max(rel[1], ed)]
+            check(same and back <= tol,
+                  f"{name} {trial} trial's floored stack {tuple(F.shape)}: L D L^T against "
+                  f"the plain version's {back:.2e} of max|L||D||L^T| (tol {tol:.2e}), "
+                  f"pivot signs equal {same}")
+    print(f"  K2-batched on {name}'s floored float32 fronts "
+          f"{sorted({tuple(f.shape) for f, _, _ in fronts.get('last', [])})}: L D L^T "
+          f"within {worst:.2e} of the plain version's (of max|L||D||L^T|); factors apart by "
+          f"{rel[0]:.2e} (L) and {rel[1]:.2e} (d) of their largest; pivot signs equal",
+          flush=True)
+    return worst
+
+
+def sparse_batch_phase(torch, mt, k1, k8, k2, ref, smi):
+    """Phase 18: solve_sparse_batched on the card.  Per run: every lane's
+    status, objective (1e-8 relative) and iterations (equal in float64,
+    within MIXED_ITER_BAND with the float32 phase) against the reference's
+    batch; K1-batched and K2-batched launched once per front stack and
+    factorization trial for the whole batch; the lane-stacked fronts of
+    the first and last trials held against the kernels' plain versions;
+    the float64 LP batches twice, bit-equal, and timed against the serial
+    loop of single solves.  Returns (K1 launches of the batched tiers,
+    K2-batched launches)."""
+    from madqp_tpu_torch.ops import sparse_chol as SC
+    from madqp_tpu_torch.solver import sparse_lp, sparse_qp
+
+    phase("18. the shared-pattern sparse batch: solve_sparse_batched of 16 instances "
+          "(banded_sparse_lp(2000, 1000) and grid_lp(40), float64 and mixed; "
+          "chain_qp(10000) on the augmented system)")
+    runs = ref["sparse_batched"]
+    kkts = (sparse_lp.DeviceSparseNormalKKT, sparse_qp.DeviceSparseAugmentedKKT)
+    orig = {cls: cls.factorize for cls in kkts}
+    orig_chol, orig_ldl = SC.cholesky_lower_routed, SC.ldl_lower_batched
+    trials, used = collections.Counter(), {}
+    cur, fronts = [None], {}
+
+    def signed(kkt):
+        return isinstance(kkt, sparse_qp.DeviceSparseAugmentedKKT) or kkt.use_ldl
+
+    def patch(cls):
+        fact = orig[cls]
+
+        def counted(self, *a):
+            trials[id(self)] += 1
+            used[id(self)] = self
+            cur[0] = self
+            # keep the first trial's stacks and the latest trial's of each KKT
+            fronts.setdefault(id(self), {}).pop("last", None)
+            return fact(self, *a)
+        cls.factorize = counted
+
+    def keep(item):
+        key = "first" if trials[id(cur[0])] == 1 else "last"
+        fronts[id(cur[0])].setdefault(key, []).append(item)
+
+    def captured_chol(F):
+        keep(F.clone())
+        return orig_chol(F)
+
+    def captured_ldl(F, sgn=None, floor=0.0):
+        keep((F.clone(), sgn, floor))
+        return orig_ldl(F, sgn=sgn, floor=floor)
+
+    def batch(run, qps):
+        trials.clear()
+        used.clear()
+        fronts.clear()
+        reset_counts(k1, k8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = mt.solve_sparse_batched(qps, device="cuda", **run["options"])
+        wall = time.perf_counter() - t0
+        return res, wall, dict(k1.cholesky_lower.routes), k2.ldl_lower_batched.launches
+
+    fails, k1_batched, k2_launches = [], 0, 0
+    for cls in kkts:
+        patch(cls)
+    SC.cholesky_lower_routed, SC.ldl_lower_batched = captured_chol, captured_ldl
+    try:
+        for name, run in runs.items():
+            qps = sparse_batch_problems(mt, run)
+            mixed = "factorization_dtype" in run["options"]
+            res, wall, routes, n2 = batch(run, qps)
+            n1 = sum(routes.values())
+            nb = n1 - routes.get("persistent", 0) - routes.get("single", 0)
+            k1_batched, k2_launches = k1_batched + nb, k2_launches + n2
+            # launches expected: the KKT's front stacks x its trials
+            want1 = want2 = 0
+            sched = []
+            for key, kkt in used.items():
+                stacks, items = front_schedule(kkt)
+                sched.append(f"{'LDL' if signed(kkt) else 'Cholesky'} "
+                             f"{kkt.fact_dtype or torch.float64}: {trials[key]} trials x "
+                             f"{stacks} stacks {items}")
+                if signed(kkt):
+                    want2 += stacks * trials[key]
+                else:
+                    want1 += stacks * trials[key]
+            bad = []
+            for i, (r, status, it, obj) in enumerate(zip(res, run["status"], run["iter"],
+                                                         run["objective"])):
+                band = MIXED_ITER_BAND if mixed else 0
+                if not (int(r.status) == status == 1 and abs(r.iter - it) <= band
+                        and rel_err(r.objective, obj) <= 1e-8):
+                    bad.append(f"lane {i}: {r.status.name} iter {r.iter} (ref {it}) "
+                               f"rel {rel_err(r.objective, obj):.2e}")
+            iters = [r.iter for r in res]
+            print(f"  {name}: {len(res)} lanes, iterations {iters} (ref {run['iter']}); "
+                  f"worst objective rel "
+                  f"{max(rel_err(r.objective, o) for r, o in zip(res, run['objective'])):.2e}; "
+                  f"wall {wall:.3f} s, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; K1 launches {n1} "
+                  f"{routes}, K2-batched {n2} "
+                  f"(expected {want1} and {want2}: once per front stack and trial for the "
+                  f"whole batch); {'; '.join(sched)}", flush=True)
+            ok = not bad and n1 == nb == want1 and n2 == want2 and (want1 + want2) > 0
+            if not ok:
+                fails.append(f"{name}: {bad[:4]} K1 {n1} (want {want1}) K2 {n2} (want {want2})")
+                continue
+            captured = dict(fronts)
+            for key, fr in captured.items():
+                kkt, last = used[key], fr.get("last", fr["first"])
+                if signed(kkt) and kkt.pivot_floor > 0:
+                    floored_ldl_check(torch, k2, name, fr)
+                elif signed(kkt):
+                    ldl_front_check(torch, k2, name, [F for F, _, _ in last])
+                elif mixed:
+                    # the float64 phase 2 starts warm, near the optimum:
+                    # every trial's fronts are held as a last trial's
+                    front_kernel_check(torch, k1, {"last": fr["first"] + fr.get("last", [])})
+                else:
+                    front_kernel_check(torch, k1, {"first": fr["first"], "last": last})
+            fronts.clear()
+            if name not in SPARSE_BATCH_TIMED:
+                continue
+            again, warm, _, _ = batch(run, qps)
+            same = all(np.array_equal(a.solution, b.solution)
+                       and np.array_equal(a.multipliers, b.multipliers)
+                       and a.iter == b.iter for a, b in zip(res, again))
+            check(same, f"{name}: two runs of the batch differ")
+            opts = dict(run["options"])
+            mt.solve_sparse_lp(qps[0], mode="batched", device="cuda", **opts)   # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serial = [mt.solve_sparse_lp(qp, mode="batched", device="cuda", **opts)
+                      for qp in qps]
+            torch.cuda.synchronize()
+            t_serial = time.perf_counter() - t0
+            same_iters = [s.iter for s in serial] == iters
+            print(f"  {name}: two runs bit-equal; warm batch {warm:.3f} s "
+                  f"({len(qps) / warm:.2f} instances/s) against the serial loop of single "
+                  f"solves {t_serial:.3f} s ({len(qps) / t_serial:.2f} instances/s): "
+                  f"{t_serial / warm:.2f}x; serial iterations equal the lanes': "
+                  f"{same_iters}; {smi}", flush=True)
+    finally:
+        for cls in kkts:
+            cls.factorize = orig[cls]
+        SC.cholesky_lower_routed, SC.ldl_lower_batched = orig_chol, orig_ldl
+    for msg in fails:
+        print(f"  FAIL {msg}")
+    check(not fails, f"sparse batch: {len(fails)} failures")
+    return k1_batched, k2_launches
+
+
 def main():
     import argparse
 
@@ -2136,6 +2377,7 @@ def main():
     k2_err, k2_times = ldl_kernel_phase(torch, k2)
     qp_ldl, qp_batched, qp_lanes, _ = sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi,
                                                       args.save_fronts)
+    sb_batched, sb_ldl = sparse_batch_phase(torch, mt, k1, k8, k2, ref, smi)
 
     t600 = k1_times[("float32", 600)]
     t8 = k8_times[("float32", (3840, 1792, 256))]
@@ -2172,7 +2414,7 @@ def main():
         "route": "cuda",
         "source": "madqp_tpu_torch/csrc/cholesky_batched.cu",
         "replaces": "madqp_tpu/ops/pallas_chol.py:158",
-        "launches": kb_launches + ts_batched + sn_batched + qp_batched,
+        "launches": kb_launches + ts_batched + sn_batched + qp_batched + sb_batched,
         "max_abs_err": kb_err,
         "ms": tb["kernel"],
         "plain_ms": tb["plain"],
@@ -2196,7 +2438,7 @@ def main():
         "route": "cuda",
         "source": "madqp_tpu_torch/csrc/ldl_batched.cu",
         "replaces": "madqp_tpu/ops/blocked_dense.py:37 via madqp_tpu/ops/sparse_chol.py:1306",
-        "launches": sn_ldl + qp_ldl,
+        "launches": sn_ldl + qp_ldl + sb_ldl,
         "max_abs_err": k2_err,
         "ms": t2["kernel"],
         "plain_ms": t2["plain"],

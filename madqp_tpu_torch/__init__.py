@@ -17,7 +17,8 @@ sparse LP and QP on the device (`solve_sparse_lp`, `solve_sparse_qp`,
 `solve_sparse_condensed`: the normal equations, the augmented K2 system and
 the condensed K1 system assembled on the card, the first factored as one
 dense matrix or by the supernodal Cholesky, the others by the supernodal
-Cholesky or the signed supernodal LDL^T).
+Cholesky or the signed supernodal LDL^T), and batches of same-pattern
+sparse instances on the supernodal path (`solve_sparse_batched`).
 The reference's Pallas kernels are hand-written CUDA kernels here: the
 Cholesky (K1: `ops/pallas_chol.py`, `csrc/cholesky.cu`), selected with
 `linear_solver="pallas"`, and the rank-k update (K8: `ops/syrk.py`,
@@ -90,6 +91,7 @@ from .solver import (
 from .parallel import (
     BatchedMPCSolver,
     solve_batched,
+    solve_sparse_batched,
     TwoStageProblem,
     SchurKKT,
     build_two_stage,
@@ -155,6 +157,7 @@ __all__ = [
     "solve_sparse_condensed",
     "BatchedMPCSolver",
     "solve_batched",
+    "solve_sparse_batched",
     "TwoStageProblem",
     "SchurKKT",
     "build_two_stage",

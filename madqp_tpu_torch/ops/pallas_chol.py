@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -413,14 +414,46 @@ def cholesky_lower_routed(A: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _lapack_cholesky(M: torch.Tensor) -> torch.Tensor:
+    """The CPU form of `dense_cholesky`: LAPACK's `dpotrf` / `spotrf` from
+    `scipy.linalg.lapack`, one matrix at a time, on the column-major copy
+    with uplo "L".  That is the call the JAX package's CPU Cholesky makes
+    (jaxlib takes its LAPACK kernels from SciPy), so the factors are
+    bit-equal to `jax.scipy.linalg.cholesky`'s, where torch's
+    `cholesky_ex` takes the LAPACK its wheel links (MKL in the x86 wheels),
+    whose rounding follows the host CPU's instruction-set dispatch.  A
+    matrix that is not SPD gets NaN on its diagonal."""
+    from scipy.linalg import lapack
+
+    potrf = {torch.float64: lapack.dpotrf, torch.float32: lapack.spotrf}[M.dtype]
+    A = M.detach().numpy()
+    if A.size == 0:
+        return torch.zeros_like(M)
+    flat = A.reshape((-1,) + A.shape[-2:])
+    out = np.empty_like(flat)
+    for i, a in enumerate(flat):
+        c, info = potrf(np.asfortranarray(a), lower=1, clean=1)
+        out[i] = c
+        if info > 0:
+            np.fill_diagonal(out[i], np.nan)
+    return torch.from_numpy(out.reshape(A.shape))
+
+
 def dense_cholesky(M: torch.Tensor) -> torch.Tensor:
     """Library Cholesky (`linear_solver="dense"`) with the K1 contract, for
     one matrix or a stack.
 
-    `torch.linalg.cholesky` raises on a matrix that is not SPD and
-    `cholesky_ex` leaves a partial factor without a NaN, so the failure
-    reported in `info` (one per matrix) is written into that matrix's
-    diagonal as NaN (no host sync)."""
+    One matrix on the CPU takes SciPy's LAPACK (`_lapack_cholesky`,
+    bit-equal to the JAX package's CPU Cholesky); a stack on the CPU and
+    every CUDA tensor `cholesky_ex` (MKL on the CPU, cuSOLVER on the card).
+    A stack stays there because the dense batch's CPU comparisons sit at
+    their rounding floor (ROADMAP.md Queue 3).  `torch.linalg.cholesky`
+    raises on a matrix that is not SPD and `cholesky_ex` leaves a partial
+    factor without a NaN, so the failure reported in `info` (one per
+    matrix) is written into that matrix's diagonal as NaN (no host
+    sync)."""
+    if M.device.type == "cpu" and M.dim() == 2:
+        return _lapack_cholesky(M)
     L, info = torch.linalg.cholesky_ex(M)
     L.diagonal(dim1=-2, dim2=-1).masked_fill_(info[..., None] > 0, float("nan"))
     return L

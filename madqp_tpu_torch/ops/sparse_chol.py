@@ -996,39 +996,43 @@ def device_schedule(bs: "BucketedSymbolic", device) -> _DeviceSchedule:
 
 
 def _work(ds: _DeviceSchedule, a_values: torch.Tensor) -> torch.Tensor:
-    w = a_values.new_zeros(ds.size)
-    w[:ds.n_a] = a_values
-    w[ds.one] = 1.0
+    """The working vector of each lane: (..., size) for values (..., n_a)."""
+    w = a_values.new_zeros(a_values.shape[:-1] + (ds.size,))
+    w[..., :ds.n_a] = a_values
+    w[..., ds.one] = 1.0
     return w
 
 
 def _assemble(st: _Step, work: torch.Tensor) -> torch.Tensor:
-    """The step's fronts (count, r_pad, r_pad), symmetrized from the
-    lower-stored assembly (deterministic sorted sums, see the module
-    docstring)."""
+    """The step's fronts (B * count, r_pad, r_pad), lane-major (B = 1
+    without a lane axis), symmetrized from the lower-stored assembly
+    (deterministic sorted sums, see the module docstring)."""
     r_pad = st.w_pad + st.u_pad
-    F = work.new_zeros(st.count * r_pad * r_pad)
-    F[st.udst] = segment_sum(work[st.src], st.seg_len)
-    F = F.view(st.count, r_pad, r_pad)
+    F = work.new_zeros(work.shape[:-1] + (st.count * r_pad * r_pad,))
+    F[..., st.udst] = segment_sum(work[..., st.src], st.seg_len)
+    F = F.view(-1, r_pad, r_pad)
     return torch.tril(F) + torch.tril(F, -1).mT
 
 
 def _chain_start(ds: _DeviceSchedule, work: torch.Tensor, i: int, u_pad: int) -> None:
-    """Seed a chain's carried update from its head's child (or zeros)."""
+    """Seed a chain's carried update, in each lane's own carry region, from
+    its head's child (or zeros)."""
     init = ds.chain_init[i]
-    region = work[ds.carry0:ds.carry0 + u_pad * u_pad]
+    region = work[..., ds.carry0:ds.carry0 + u_pad * u_pad]
     if init is None:
         region.zero_()
     else:
-        region.copy_(work[init])
+        region.copy_(work[..., init])
 
 
 def _write_out(st: _Step, ds: _DeviceSchedule, work: torch.Tensor, U: torch.Tensor) -> None:
-    flat = U.reshape(-1)
+    """The update blocks U (B * count, u_pad, u_pad) of the step into each
+    lane's `upd_buf` (and, in a chain, its carry region)."""
+    flat = U.reshape(work.shape[:-1] + (-1,))
     if st.upd_to.numel():
-        work[st.upd_to] = flat[st.upd_from]
+        work[..., st.upd_to] = flat[..., st.upd_from]
     if st.carry:
-        work[ds.carry0:ds.carry0 + flat.numel()] = flat
+        work[..., ds.carry0:ds.carry0 + flat.shape[-1]] = flat
 
 
 def _eye(w: int, like: torch.Tensor) -> torch.Tensor:
@@ -1036,7 +1040,8 @@ def _eye(w: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def _chol_front(F: torch.Tensor, w_pad: int, inverse: bool):
-    """Cholesky of each front's leading block by K1's batched form: returns
+    """Cholesky of each front's leading block by K1's batched form (one
+    launch for the whole stack, every lane's fronts in it): returns
     (top, L21, U) with top = L11 (or L11^-1 with inverse), L21 = F21
     L11^-T and U = F22 - L21 L21^T (None when u_pad = 0)."""
     L11 = cholesky_lower_routed(F[:, :w_pad, :w_pad].contiguous())
@@ -1077,18 +1082,21 @@ def _panel(top, L21):
     return top if L21 is None else torch.cat([top, L21], dim=1)
 
 
-def _stack(item, blocks):
-    """An item's per-step (count, ...) blocks stacked as the reference
-    stacks them: a bucket's one block (L, ...), a scan's along a new first
-    axis (K, L, ...), a chain's stacks of one along the first (K, ...)."""
+def _stack(item, blocks, lanes=()):
+    """An item's per-step lanes + (count, ...) blocks stacked as the
+    reference stacks them, after the lane axes: a bucket's one block
+    (L, ...), a scan's along a new axis (K, L, ...), a chain's stacks of
+    one along the first (K, ...)."""
     if isinstance(item, _Bucket):
         return blocks[0]
-    return torch.cat(blocks) if isinstance(item, _Chain) else torch.stack(blocks)
+    axis = len(lanes)
+    return torch.cat(blocks, axis) if isinstance(item, _Chain) else torch.stack(blocks, axis)
 
 
 def _factorize(bs, a_values, inverse, ldl=False, signs=None, pivot_floor=0.0):
     ds = device_schedule(bs, a_values.device)
     work = _work(ds, a_values)
+    lanes = a_values.shape[:-1]
     panels, dvecs = [], []
     for i, (item, steps) in enumerate(zip(bs.schedule, ds.items)):
         if isinstance(item, _Chain):
@@ -1102,17 +1110,20 @@ def _factorize(bs, a_values, inverse, ldl=False, signs=None, pivot_floor=0.0):
             if ldl:
                 sg = None
                 if sgn_item is not None:
+                    # the signs come from the pattern: the same in every lane
                     sg = (sgn_item if isinstance(item, _Bucket) else sgn_item[k])
-                    sg = sg.reshape(st.count, st.w_pad)
+                    sg = sg.reshape(st.count, st.w_pad).expand(
+                        lanes + (st.count, st.w_pad)).reshape(-1, st.w_pad)
                 top, L21, U, d = _ldl_front(F, st.w_pad, sg, pivot_floor, inverse)
-                dblocks.append(d)
+                dblocks.append(d.reshape(lanes + (st.count, st.w_pad)))
             else:
                 top, L21, U = _chol_front(F, st.w_pad, inverse)
-            blocks.append(_panel(top, L21))
+            P = _panel(top, L21)
+            blocks.append(P.reshape(lanes + (st.count,) + P.shape[1:]))
             if U is not None:
                 _write_out(st, ds, work, U)
-        panels.append(_stack(item, blocks))
-        dvecs.append(_stack(item, dblocks) if ldl else None)
+        panels.append(_stack(item, blocks, lanes))
+        dvecs.append(_stack(item, dblocks, lanes) if ldl else None)
     return panels, dvecs
 
 
@@ -1123,78 +1134,95 @@ def factorize_batched(bs: "BucketedSymbolic", a_values: torch.Tensor,
     `permute_values`).  Returns one panel stack per schedule item ((L,
     r_pad, w_pad) for buckets, (K, L, r_pad, w_pad) for scans, (K, r_pad,
     w_pad) for chains).  With inverse=True the stored diagonal block is
-    L11^-1 and the solves are products."""
+    L11^-1 and the solves are products.
+
+    `a_values` of shape (B, n_a) factors B instances of the pattern at once
+    (a leading lane axis on every panel stack): each front stack of the
+    schedule becomes one stack of B times as many fronts, one kernel
+    launch for all lanes."""
     return _factorize(bs, a_values, inverse)[0]
 
 
-def _sweep_steps(item, P, steps):
-    """(step, its panels) of an item in the forward order."""
+def _sweep_steps(item, P, steps, lanes=()):
+    """(step, its panels lanes + (count, r_pad, w_pad)) of an item in the
+    forward order."""
     if isinstance(item, _Bucket):
         return [(steps[0], P)]
+    axis = len(lanes)
     if isinstance(item, _Chain):
-        return [(st, P[k][None]) for k, st in enumerate(steps)]
-    return [(st, P[k]) for k, st in enumerate(steps)]
+        return [(st, P.narrow(axis, k, 1)) for k, st in enumerate(steps)]
+    return [(st, P.select(axis, k)) for k, st in enumerate(steps)]
 
 
 def _forward(x, st: _Step, P, n, unit, inverse):
     w = st.w_pad
-    xc = x[st.cols]
+    lanes = x.shape[:-1]
+    P = P.reshape((-1,) + P.shape[-2:])
+    xc = x[..., st.cols].reshape(-1, w)
     if inverse:
         xj = (P[:, :w, :] @ xc[..., None])[..., 0]
     else:
         xj = torch.linalg.solve_triangular(P[:, :w, :], xc[..., None], upper=False,
                                            unitriangular=unit)[..., 0]
-    x[st.cols.reshape(-1)] = xj.reshape(-1)
+    x[..., st.cols.reshape(-1)] = xj.reshape(lanes + (-1,))
     if st.u_pad:
-        y = (P[:, w:, :] @ xj[..., None])[..., 0].reshape(-1)
-        x[st.b_uniq] = x[st.b_uniq] - segment_sum(y[st.b_order], st.b_len)
-    x[n] = 0.0
+        y = (P[:, w:, :] @ xj[..., None])[..., 0].reshape(lanes + (-1,))
+        x[..., st.b_uniq] = x[..., st.b_uniq] - segment_sum(y[..., st.b_order], st.b_len)
+    x[..., n] = 0.0
 
 
 def _backward(x, st: _Step, P, n, unit, inverse):
     w = st.w_pad
-    rhs = x[st.cols]
+    lanes = x.shape[:-1]
+    P = P.reshape((-1,) + P.shape[-2:])
+    rhs = x[..., st.cols].reshape(-1, w)
     if st.u_pad:
-        rhs = rhs - (P[:, w:, :].mT @ x[st.below][..., None])[..., 0]
+        below = x[..., st.below].reshape(-1, st.u_pad)
+        rhs = rhs - (P[:, w:, :].mT @ below[..., None])[..., 0]
     if inverse:
         xj = (P[:, :w, :].mT @ rhs[..., None])[..., 0]
     else:
         xj = torch.linalg.solve_triangular(P[:, :w, :].mT, rhs[..., None], upper=True,
                                            unitriangular=unit)[..., 0]
-    x[st.cols.reshape(-1)] = xj.reshape(-1)
-    x[n] = 0.0
+    x[..., st.cols.reshape(-1)] = xj.reshape(lanes + (-1,))
+    x[..., n] = 0.0
 
 
 def _solve(bs, panels, b, inverse, unit=False, dglob=None):
+    """x of shape b's: (n,), or (B, n) against lane-stacked panels; each
+    lane keeps its own sentinel x[..., n] = 0."""
     ds = device_schedule(bs, b.device)
     n = bs.n
-    x = torch.cat([b[ds.perm], b.new_zeros(1)])
+    lanes = b.shape[:-1]
+    x = torch.cat([b[..., ds.perm], b.new_zeros(lanes + (1,))], dim=-1)
     for item, P, steps in zip(bs.schedule, panels, ds.items):
-        for st, Pk in _sweep_steps(item, P, steps):
+        for st, Pk in _sweep_steps(item, P, steps, lanes):
             _forward(x, st, Pk, n, unit, inverse)
     if dglob is not None:
         x = x / dglob
     for item, P, steps in zip(bs.schedule[::-1], panels[::-1], ds.items[::-1]):
-        for st, Pk in _sweep_steps(item, P, steps)[::-1]:
+        for st, Pk in _sweep_steps(item, P, steps, lanes)[::-1]:
             _backward(x, st, Pk, n, unit, inverse)
-    return x[:-1][ds.iperm]
+    return x[..., :-1][..., ds.iperm]
 
 
 def solve_batched(bs: "BucketedSymbolic", panels, b: torch.Tensor,
                   inverse: bool = False) -> torch.Tensor:
     """Level-scheduled batched triangular solves: L y = b, then L' x = y.
-    inverse must match the factorization's."""
+    inverse must match the factorization's.  b (B, n) solves each lane
+    against its lane of the panels."""
     return _solve(bs, panels, b, inverse)
 
 
-def factor_ok_batched(panels) -> torch.Tensor:
-    """All diagonal pivots finite and positive (padding diag is 1); a 0-d
-    bool tensor on the panels' device."""
-    ok = torch.ones((), dtype=torch.bool, device=panels[0].device)
+def factor_ok_batched(panels, lanes=()) -> torch.Tensor:
+    """All diagonal pivots finite and positive (padding diag is 1): a bool
+    tensor of shape `lanes` (0-d for one instance; (B,) for panels with a
+    leading lane axis, one flag per lane) on the panels' device."""
+    ok = torch.ones(lanes, dtype=torch.bool, device=panels[0].device)
     for P in panels:
         w = P.shape[-1]
-        d = torch.diagonal(P[..., :w, :], dim1=-2, dim2=-1)
-        ok = ok & torch.isfinite(d).all() & (d > 0).all()
+        d = torch.diagonal(P[..., :w, :], dim1=-2, dim2=-1).reshape(lanes + (-1,))
+        ok = ok & torch.isfinite(d).all(-1) & (d > 0).all(-1)
     return ok
 
 
@@ -1219,15 +1247,17 @@ def factorize_batched_ldl(bs: "BucketedSymbolic", a_values: torch.Tensor, signs=
     dglob): per-item unit-lower panels, pivot vectors, and the pivot
     vector in permuted order (n + 1, the last slot 1).  `signs`
     (`bucket_signs`) with pivot_floor > 0 turn on the sign-directed pivot
-    floor."""
+    floor.  `a_values` (B, n_a) factors B lanes at once, as
+    `factorize_batched` does (dglob (B, n + 1))."""
     panels, dvecs = _factorize(bs, a_values, inverse, ldl=True, signs=signs,
                                pivot_floor=pivot_floor)
     ds = device_schedule(bs, a_values.device)
-    dglob = a_values.new_ones(bs.n + 1)
+    lanes = a_values.shape[:-1]
+    dglob = a_values.new_ones(lanes + (bs.n + 1,))
     for steps, item, d in zip(ds.items, bs.schedule, dvecs):
         cols = torch.cat([st.cols.reshape(-1) for st in steps])
-        dglob[cols] = d.reshape(-1)
-    dglob[bs.n] = 1.0
+        dglob[..., cols] = d.reshape(lanes + (-1,))
+    dglob[..., bs.n] = 1.0
     return panels, dvecs, dglob
 
 
@@ -1247,13 +1277,16 @@ def bucket_signs(bs: "BucketedSymbolic", signs: np.ndarray) -> List[np.ndarray]:
 
 
 def factor_ok_batched_ldl(factors, expected_signs) -> torch.Tensor:
-    """Inertia check: every pivot finite, nonzero and of the expected sign
-    (a 0-d bool tensor on the pivots' device)."""
-    _, dvecs, _ = factors
-    ok = torch.ones((), dtype=torch.bool, device=dvecs[0].device)
+    """Inertia check: every pivot finite, nonzero and of the expected sign.
+    A bool tensor of the factors' lane shape (0-d for one instance, (B,)
+    with a lane axis: one flag per lane) on the pivots' device."""
+    _, dvecs, dglob = factors
+    lanes = dglob.shape[:-1] if dglob is not None else ()
+    ok = torch.ones(lanes, dtype=torch.bool, device=dvecs[0].device)
     for d, s in zip(dvecs, expected_signs):
         s = torch.as_tensor(s, dtype=d.dtype, device=d.device)
-        ok = ok & torch.isfinite(d).all() & (d * s > 0).all()
+        good = torch.isfinite(d) & (d * s > 0)
+        ok = ok & good.reshape(lanes + (-1,)).all(-1)
     return ok
 
 

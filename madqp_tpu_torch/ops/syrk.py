@@ -32,6 +32,7 @@ import math
 import torch
 
 from . import _build
+from ..utils.roofline import syrk_ops  # noqa: F401  (K8's needed operations)
 
 SOURCE = _build.CSRC_DIR / "syrk.cu"
 # Output tile edge of the kernel in both dtypes; must equal madqp_syrk_tile().
@@ -89,13 +90,6 @@ def syrk_update_reference(C: torch.Tensor, B: torch.Tensor,
     if out is None:
         return res
     return out.copy_(res)
-
-
-def syrk_ops(r: int, c: int, k: int) -> float:
-    """Operations C - B B[:c]^T needs: the top (c, c) block of the product
-    is symmetric, so only its lower triangle (c (c + 1) k) and the (r - c,
-    c) block below it (2 (r - c) c k) have to be computed."""
-    return float(c * (c + 1) * k + 2 * (r - c) * c * k)
 
 
 def syrk_tile_ops(r: int, c: int, k: int) -> float:

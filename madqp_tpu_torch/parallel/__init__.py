@@ -2,10 +2,12 @@
 solves of padded batches on one card (`BatchedMPCSolver`, `solve_batched`),
 the padding that `pad_mode="bucket"` also uses (`pad_standard`), and the
 two-stage stochastic QP with its Schur-complement KKT (`TwoStageProblem`,
-`SchurKKT`, `solve_two_stage`).  The sparse batched path is ROADMAP.md
-Queue 1, item 14."""
+`SchurKKT`, `solve_two_stage`); and the shared-pattern sparse batch
+(`solve_sparse_batched`: one symbolic phase, every front stack of the
+supernodal factorization holding all lanes' fronts)."""
 
 from .batched import BatchedMPCSolver, solve_batched, pad_standard
+from .sparse_batched import solve_sparse_batched
 from .structured import (
     TwoStageProblem,
     SchurKKT,
@@ -19,6 +21,7 @@ __all__ = [
     "BatchedMPCSolver",
     "solve_batched",
     "pad_standard",
+    "solve_sparse_batched",
     "TwoStageProblem",
     "SchurKKT",
     "build_two_stage",

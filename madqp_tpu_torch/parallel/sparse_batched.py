@@ -1,0 +1,227 @@
+"""Batched sparse solving: the supernodal sparse path over many instances
+sharing one sparsity pattern (port of `madqp_tpu/parallel/sparse_batched.py`).
+
+The symbolic phase (ordering, supernodes, the schedule of front stacks:
+the host's expensive part) is computed ONCE from the shared pattern, by the
+KKT's constructor.  The numeric phase carries a leading lane axis: the
+problem's values are (B, ...) tensors over shared index lists, and every
+front stack (count, r, r) of the schedule becomes one (B * count, r, r)
+stack, factored by K1's batched form (the normal equations in float64) or
+K2-batched (the augmented K2 system, and the float32 phase's floored
+LDL^T) in ONE launch for the whole batch: the launches per iteration are
+those of one instance, each doing B times the work.  The reference vmaps
+its `MPCKernel.solve_from` over the instances; here the lane-masked
+`solver/mpc.py::BatchedMPCKernel` steps them in lockstep
+(`parallel/batched.py::run_lanes`), lanes that converge freezing while
+the rest iterate, each lane retrying its own factorization (`factor_ok`
+gives one flag per lane); phase 2 of the two-phase scheme starts every
+lane from phase 1's iterate (`init_state_warm`).
+
+Use cases: scenario sweeps of one model (same network, different data),
+receding-horizon re-solves, Monte-Carlo LP/QP studies.
+
+Where this differs from the reference: `mesh=` (sharding the lanes over
+devices) raises `NotImplementedError` (ROADMAP.md Queue 1, item 17), and
+the KKTs are cached with their BatchedMPCKernel rather than a compiled
+program, since nothing is compiled per pattern.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+from typing import List, Sequence
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ..models.qp import QuadraticProblem, build_standard_form_sparse
+from ..ops.kkt import torch_dtype
+from ..solver.mpc import BatchedMPCKernel
+from ..solver.sparse_common import canonical_coo_vals, pattern_fingerprint, two_phase_opts
+from ..utils import Counters, ExecutionStats, Status, load_options
+from .batched import _STATUS_MAP, MESH_ITEM, run_lanes
+
+
+def _diag_hessian(H) -> bool:
+    if H is None or H.nnz == 0:
+        return True
+    Hcoo = sp.coo_matrix(H)
+    return bool((Hcoo.row == Hcoo.col).all())
+
+
+# Pattern-keyed cache of the KKTs (their symbolic schedules: the dominant
+# fixed cost of a batched solve) and kernels per phase, as in the
+# reference: the KKT objects hold only the PATTERN (the values arrive with
+# the problem arrays), so reuse across same-pattern batches is safe.
+_BATCHED_CACHE: "OrderedDict[tuple, object]" = OrderedDict()
+_BATCHED_CACHE_SIZE = 8
+
+
+def _stack_problem(stds, kkt, dtype, device):
+    """The batch's sparse problem: the first instance's index lists
+    (`make_problem`, the KKT's canonical COO order) with every value field
+    stacked over the lanes."""
+    from ..solver.sparse_lp import make_problem
+
+    base = make_problem(stds[0], kkt, dtype, device)
+
+    def stack(f, dt=dtype):
+        return torch.as_tensor(np.stack([np.asarray(f(s)) for s in stds]), dtype=dt,
+                               device=device)
+
+    fields = dict(c0=stack(lambda s: s.c0), c=stack(lambda s: s.c), b=stack(lambda s: s.b),
+                  has_lb=stack(lambda s: s.has_lb, torch.bool),
+                  has_ub=stack(lambda s: s.has_ub, torch.bool),
+                  a_vals=stack(lambda s: canonical_coo_vals(s.A)))
+    if hasattr(base, "h_vals"):
+        fields["h_vals"] = stack(lambda s: canonical_coo_vals(s.H))
+    return base._replace(**fields)
+
+
+def solve_sparse_batched(
+    qps: Sequence[QuadraticProblem],
+    order: str = "auto",
+    kkt_system: str = "auto",
+    mesh=None,
+    batch_axis: str = "batch",
+    *,
+    device="cuda",
+    **options,
+) -> List[ExecutionStats]:
+    """Solve a batch of same-pattern sparse LPs/QPs in lockstep on `device`
+    (the CUDA card unless the caller asks for the CPU).
+
+    All instances must share the sparsity patterns of A (and H); values,
+    rhs, costs, and bounds may differ.  kkt_system as in solve_sparse_qp:
+    'auto' picks normal equations when the Hessian is absent/diagonal
+    ("normal" insists on them, "augmented" takes the K2 system).  The
+    normal equations always run the supernodal "batched" mode, whatever
+    `dense_normal_limit` says.  `mesh` must be None (one card);
+    `batch_axis` names the mesh axis and has no use without one."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh=: sharding the batch over several devices is not ported "
+            f"yet (ROADMAP.md {MESH_ITEM}, torch.distributed)")
+    if not qps:
+        return []
+    device = torch.device(device)
+    opts, _ = load_options(**options)
+    built = [
+        build_standard_form_sparse(qp, scaling=opts.scaling,
+                                   max_gradient=opts.max_gradient)
+        for qp in qps
+    ]
+    stds = [b[0] for b in built]
+    infos = [b[1] for b in built]
+    fps = {pattern_fingerprint(s.A, s.H) for s in stds}
+    if len(fps) != 1:
+        raise ValueError(
+            "solve_sparse_batched requires all instances to share the "
+            f"A/H sparsity pattern (got {len(fps)} distinct patterns); "
+            "use parallel.solve_batched (dense, padded) for ragged batches."
+        )
+    std0 = stds[0]
+    use_normal = kkt_system != "augmented" and _diag_hessian(std0.H)
+    if kkt_system == "normal" and not _diag_hessian(std0.H):
+        raise ValueError("kkt_system='normal' needs an LP or diagonal Hessian.")
+    if device.type == "cuda":
+        # Full-f32 products: a float32 factorization's accuracy rests on them.
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    two_phase = (opts.factorization_dtype == "float32"
+                 and opts.precision_scheme == "two-phase"
+                 and opts.tol < opts.phase1_tol)
+    opts1, opts2 = two_phase_opts(opts) if two_phase else (opts, None)
+
+    # the solver package imports this one: its sparse KKTs at call time
+    from ..solver.sparse_lp import DeviceSparseNormalKKT
+    from ..solver.sparse_qp import DeviceSparseAugmentedKKT
+
+    def make_kkt(o):
+        fd = o.factorization_dtype or None
+        inv = o.solve_mode == "inverse"
+        if use_normal:
+            return DeviceSparseNormalKKT(std0.A, order=order,
+                                         fact_dtype=fd, inverse=inv)
+        return DeviceSparseAugmentedKKT(std0.H, std0.A, order=order,
+                                        fact_dtype=fd, inverse=inv)
+
+    fp = fps.pop()
+
+    def cached(o, entry, build):
+        key = (fp, o, use_normal, order, entry)
+        hit = _BATCHED_CACHE.get(key)
+        if hit is not None:
+            _BATCHED_CACHE.move_to_end(key)
+            return hit
+        val = build()
+        _BATCHED_CACHE[key] = val
+        while len(_BATCHED_CACHE) > _BATCHED_CACHE_SIZE:
+            _BATCHED_CACHE.popitem(last=False)
+        return val
+
+    kkt1 = cached(opts1, "kkt", lambda: make_kkt(opts1))
+
+    # --- stacked problem arrays (canonical CSC value order per instance) --
+    dtype = torch_dtype(opts.dtype)
+    prob = _stack_problem(stds, kkt1, dtype, device)
+
+    def stack(vs):
+        return torch.as_tensor(np.stack(vs), dtype=dtype, device=device)
+
+    x0 = stack([b[2] for b in built])
+    y0 = stack([b[3] for b in built])
+    lb = stack([s.lb for s in stds])
+    ub = stack([s.ub for s in stds])
+
+    kern1 = cached(opts1, "solve", lambda: BatchedMPCKernel(opts1, kkt=kkt1))
+
+    t0 = time.time()
+    final = run_lanes(kern1, prob, kern1.init_state(prob, x0, y0, lb, ub))
+    extra = None
+    if two_phase:
+        # Phase 2 runs on every lane, warm-started from phase 1's iterate.
+        extra = final.k
+        kern2 = cached(opts2, "warm_solve", lambda: BatchedMPCKernel(
+            opts2, kkt=cached(opts2, "kkt", lambda: make_kkt(opts2))))
+        final = run_lanes(kern2, prob, kern2.init_state_warm(
+            prob, final.x, final.y, final.zl, final.zu, lb, ub))
+        extra = extra.cpu().numpy()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.time() - t0
+
+    host = {name: (v.detach().to("cpu").numpy() if isinstance(v, torch.Tensor) else v)
+            for name, v in final._asdict().items() if name != "d"}
+    out = []
+    for lane, (info, qp) in enumerate(zip(infos, qps)):
+        x_user = info.recover_x(np.asarray(host["x"][lane], np.float64)[: info.n])
+        y_user = info.recover_y(np.asarray(host["y"][lane], np.float64)[: info.m])
+        g_user = qp.grad(x_user)
+        r_fix = g_user + qp.jtprod(y_user)
+        zl_user = info.recover_z(
+            np.asarray(host["zl"][lane], np.float64)[: info.n],
+            np.maximum(r_fix, 0.0))
+        zu_user = info.recover_z(
+            np.asarray(host["zu"][lane], np.float64)[: info.n],
+            np.maximum(-r_fix, 0.0))
+        k = int(host["k"][lane]) + (int(extra[lane]) if extra is not None else 0)
+        out.append(ExecutionStats(
+            status=_STATUS_MAP.get(int(host["status"][lane]),
+                                   Status.INTERNAL_ERROR),
+            objective=float(qp.obj(x_user)),
+            solution=x_user,
+            constraints=qp.cons(x_user),
+            multipliers=y_user,
+            multipliers_L=zl_user,
+            multipliers_U=zu_user,
+            iter=k,
+            counters=Counters(total_time=wall, k=k),
+            primal_feas=float(host["inf_pr"][lane]),
+            dual_feas=float(host["inf_du"][lane]),
+            complementarity=float(host["inf_compl"][lane]),
+            options=opts,
+        ))
+    return out

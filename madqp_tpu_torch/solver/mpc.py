@@ -74,11 +74,13 @@ def _select(pred, a: K.KKTVec, b: K.KKTVec) -> K.KKTVec:
 
 def tree_map(fn, tree, *rest):
     """`fn` over the matching tensor fields of NamedTuples of one type
-    (states, problems, factors; a KKTVec field field by field).  A field
-    that is not a tensor (None, a host flag) is taken from `tree`: it must
-    be the same in all."""
-    if isinstance(tree, tuple):
-        return type(tree)(*(tree_map(fn, *fields) for fields in zip(tree, *rest)))
+    (states, problems, factors; a KKTVec field field by field), and of
+    tuples and lists (the sparse KKTs' factors: lists of panel stacks).  A
+    field that is not a tensor (None, a host flag) is taken from `tree`: it
+    must be the same in all."""
+    if isinstance(tree, (tuple, list)):
+        fields = [tree_map(fn, *f) for f in zip(tree, *rest)]
+        return type(tree)(*fields) if hasattr(tree, "_fields") else type(tree)(fields)
     return fn(tree, *rest) if isinstance(tree, torch.Tensor) else tree
 
 
@@ -535,17 +537,23 @@ class BatchedMPCKernel(MPCKernel):
       sync per iteration skips the work when no lane works any more.
     The scalars of the state are (B,) tensors, the counters and the status
     int64 (B,); `initialized` stays one host bool, since all lanes start
-    and warm-restart together.  The host loop that steps it
+    and warm-restart together (`init_state`, or `init_state_warm` for a
+    second phase).  The host loop that steps it
     (`parallel/batched.py::run_lanes`) freezes the lanes that had stopped
     before the call, as the vmapped `while_loop` does.
 
     The KKT backends with a batched form are the condensed and normal
-    systems on `dense` and `pallas` (K1 in its one-CTA-per-matrix form);
-    the others raise `NotImplementedError` naming ROADMAP.md's item."""
+    systems on `dense` and `pallas` (K1 in its one-CTA-per-matrix form) and
+    the two sparse KKTs of a shared pattern (`lane_axis`: the supernodal
+    normal equations and the augmented K2 system, with or without
+    `solve_mode="inverse"`; `parallel/sparse_batched.py`); the other dense
+    backends raise `NotImplementedError` naming ROADMAP.md's item."""
 
     def __init__(self, opts: IPMOptions, kkt=None):
         super().__init__(opts, kkt)
-        unported = (f"kkt_system={opts.kkt_system!r}"
+        sparse = getattr(self.kkt, "lane_axis", False)
+        unported = (None if sparse
+                    else f"kkt_system={opts.kkt_system!r}"
                     if not isinstance(self.kkt, DenseCondensedKKT)
                     else "linear_solver='blocked'" if opts.linear_solver == "blocked"
                     else "solve_mode='inverse'" if opts.solve_mode == "inverse"

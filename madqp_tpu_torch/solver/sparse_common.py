@@ -80,14 +80,19 @@ def segments(index: np.ndarray, size: int):
 
 def segment_sum(values: torch.Tensor, lengths: torch.Tensor,
                 order: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Sum of `values` by segment, through `segments`' (order, lengths) as
-    tensors on the values' device (order None: `values` is already in
-    segment order); an empty segment gives 0."""
-    if values.shape[0] == 0:
-        return values.new_zeros(lengths.shape[0])
+    """Sum of `values` by segment along their last axis, through
+    `segments`' (order, lengths) as tensors on the values' device (order
+    None: `values` is already in segment order); an empty segment gives 0.
+    Leading axes are lanes (a batch of instances sharing the index lists):
+    each lane's sums are taken in the order of a single instance's."""
+    lanes = values.shape[:-1]
+    if values.shape[-1] == 0:
+        return values.new_zeros(lanes + lengths.shape)
     if order is not None:
-        values = values[order]
-    return torch.segment_reduce(values, "sum", lengths=lengths)
+        values = values[..., order]
+    if lanes:
+        lengths = lengths.expand(lanes + lengths.shape)
+    return torch.segment_reduce(values, "sum", lengths=lengths, axis=-1)
 
 
 def upper_lookup(U: sp.csc_matrix):

@@ -51,6 +51,7 @@ import scipy.sparse as sp
 import torch
 
 from ..models.qp import QuadraticProblem, build_standard_form_sparse
+from ..ops import kernels as K
 from ..ops import sparse_chol as SC
 from ..ops.blocked_dense import factor_inv_chol
 from ..ops.kkt import torch_dtype
@@ -69,7 +70,9 @@ class SparseLPProblem(NamedTuple):
 
     `a_row_order` / `a_row_len` and `a_col_order` / `a_col_len` are the
     (order, lengths) of `sparse_common.segments` for the row and column
-    sums of the matvecs."""
+    sums of the matvecs.  A batch of same-pattern instances
+    (`parallel/sparse_batched.py`) puts a leading lane axis on the value
+    fields (c0, c, b, has_lb, has_ub, a_vals) and shares the index lists."""
 
     c0: torch.Tensor
     c: torch.Tensor
@@ -86,11 +89,11 @@ class SparseLPProblem(NamedTuple):
 
     @property
     def n(self) -> int:
-        return self.c.shape[0]
+        return self.c.shape[-1]
 
     @property
     def m(self) -> int:
-        return self.b.shape[0]
+        return self.b.shape[-1]
 
     @property
     def is_lp(self) -> bool:
@@ -104,11 +107,11 @@ class SparseLPProblem(NamedTuple):
         return torch.zeros_like(x)
 
     def jac_mv(self, x):
-        return segment_sum(self.a_vals * x[self.a_cols], self.a_row_len,
+        return segment_sum(self.a_vals * x[..., self.a_cols], self.a_row_len,
                            self.a_row_order)
 
     def jac_rmv(self, y):
-        return segment_sum(self.a_vals * y[self.a_rows], self.a_col_len,
+        return segment_sum(self.a_vals * y[..., self.a_rows], self.a_col_len,
                            self.a_col_order)
 
 
@@ -160,9 +163,16 @@ class DeviceSparseNormalKKT:
     Beyond the reference's NormalKKTSystem (LP only, normalkkt.jl:45-48),
     separable QPs (diagonal Hessian) keep W = H + Σ diagonal, so the same
     SPD reduction S = A W⁻¹ Aᵀ − δ_c I applies; the diagonal Hessian comes
-    in through the problem arrays (`prob.h_vals` with h_rows == h_cols)."""
+    in through the problem arrays (`prob.h_vals` with h_rows == h_cols).
+
+    The supernodal "batched" mode also takes a batch of instances of the
+    pattern (`parallel/sparse_batched.py`): pr_diag (B, n), del_c (B,) and
+    the problem's values with a leading lane axis; every front stack then
+    holds all lanes' fronts (one kernel launch) and `factor_ok` gives one
+    flag per lane."""
 
     name = "sparse-normal(device)"
+    lane_axis = True   # BatchedMPCKernel admits it (the "batched" mode)
 
     def __init__(self, A: sp.spmatrix, order: str = "auto", max_supernode: int = 128,
                  mode: str = "batched", fact_dtype=None, inverse: bool = False,
@@ -270,23 +280,26 @@ class DeviceSparseNormalKKT:
         # W = Σ (+ diag(H) for separable QPs): stays diagonal, so the
         # normal-equations reduction is exact.
         h_vals = getattr(prob, "h_vals", None)
-        if h_vals is not None and h_vals.shape[0]:
+        if h_vals is not None and h_vals.shape[-1]:
             pr_diag = pr_diag + segment_sum(h_vals, prob.h_row_len, prob.h_row_order)
         D = 1.0 / pr_diag
+        if D.dim() > 1 and self.mode != "batched":
+            raise ValueError(f"a batch of instances needs mode='batched' (got {self.mode!r})")
         if self.assembly == "matmul":
             return self._factorize_matmul(prob, D, del_c)
         ix = self.device_idx(prob.a_vals.device)
-        contrib = prob.a_vals[ix["pair_p"]] * D[ix["pair_k"]] * prob.a_vals[ix["pair_q"]]
+        a = prob.a_vals
+        contrib = a[..., ix["pair_p"]] * D[..., ix["pair_k"]] * a[..., ix["pair_q"]]
         s_vals = segment_sum(contrib, ix["pair_len"])
-        s_vals[ix["diag_pos"]] -= del_c
+        s_vals[..., ix["diag_pos"]] -= K.per_lane(del_c)
         # Symmetric Jacobi scaling to unit diagonal: Ms = Ds S Ds, solved
         # through S^-1 = Ds Ms^-1 Ds; keeps a float32 factorization usable
         # when the barrier diagonal spans ~1e+-8.
-        s_diag = s_vals[ix["diag_pos"]]
+        s_diag = s_vals[..., ix["diag_pos"]]
         scale = torch.rsqrt(torch.clamp(s_diag, min=torch.finfo(s_diag.dtype).tiny))
-        s_vals = s_vals * scale[ix["entry_row"]] * scale[ix["entry_col"]]
+        s_vals = s_vals * scale[..., ix["entry_row"]] * scale[..., ix["entry_col"]]
         if self.mode != "dense":
-            s_vals = s_vals[ix["value_gather"]]
+            s_vals = s_vals[..., ix["value_gather"]]
         if self.fact_dtype is not None and s_vals.dtype != self.fact_dtype:
             s_vals = s_vals.to(self.fact_dtype)
         if self.use_ldl:
@@ -367,8 +380,10 @@ class DeviceSparseNormalKKT:
         return dx, dy
 
     def factor_ok(self, factors):
+        """Whether the factorization succeeded: a 0-d bool tensor, or one
+        flag per lane (B,) for a batch."""
         panels, D, _scale, _prob, _del_c = factors
-        ok = (D > 0).all()
+        ok = (D > 0).all(-1)
         if self.mode == "dense":
             dP = torch.diagonal(panels[0])
             return ok & torch.isfinite(dP).all() & (dP > 0).all()
@@ -376,7 +391,7 @@ class DeviceSparseNormalKKT:
             ix = self.device_idx(D.device)
             return ok & SC.factor_ok_batched_ldl(panels, ix["signs"])
         if self.mode == "batched":
-            return ok & SC.factor_ok_batched(panels)
+            return ok & SC.factor_ok_batched(panels, lanes=D.shape[:-1])
         for P in panels:
             dP = torch.diagonal(P[: P.shape[1], :])
             ok = ok & torch.isfinite(dP).all() & (dP > 0).all()

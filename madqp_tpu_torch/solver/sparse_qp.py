@@ -55,7 +55,10 @@ class SparseQPProblem(NamedTuple):
     `solver/state.py::ProblemArrays`).  `h_*` hold the FULL symmetric
     Hessian (both triangles), so `hess_mv` is one segment sum; the
     `*_order` / `*_len` fields are `sparse_common.segments`' for the row
-    and column sums."""
+    and column sums.  A batch of same-pattern instances
+    (`parallel/sparse_batched.py`) puts a leading lane axis on the value
+    fields (c0, c, b, has_lb, has_ub, a_vals, h_vals) and shares the index
+    lists."""
 
     c0: torch.Tensor
     c: torch.Tensor
@@ -79,15 +82,15 @@ class SparseQPProblem(NamedTuple):
 
     @property
     def n(self) -> int:
-        return self.c.shape[0]
+        return self.c.shape[-1]
 
     @property
     def m(self) -> int:
-        return self.b.shape[0]
+        return self.b.shape[-1]
 
     @property
     def is_lp(self) -> bool:
-        return self.h_vals.shape[0] == 0
+        return self.h_vals.shape[-1] == 0
 
     @property
     def H(self):
@@ -96,15 +99,15 @@ class SparseQPProblem(NamedTuple):
     def hess_mv(self, x):
         if self.is_lp:
             return torch.zeros_like(x)
-        return segment_sum(self.h_vals * x[self.h_cols], self.h_row_len,
+        return segment_sum(self.h_vals * x[..., self.h_cols], self.h_row_len,
                            self.h_row_order)
 
     def jac_mv(self, x):
-        return segment_sum(self.a_vals * x[self.a_cols], self.a_row_len,
+        return segment_sum(self.a_vals * x[..., self.a_cols], self.a_row_len,
                            self.a_row_order)
 
     def jac_rmv(self, y):
-        return segment_sum(self.a_vals * y[self.a_rows], self.a_col_len,
+        return segment_sum(self.a_vals * y[..., self.a_rows], self.a_col_len,
                            self.a_col_order)
 
 
@@ -115,9 +118,14 @@ class DeviceSparseAugmentedKKT:
     its upper-CSC value array, the Jacobi scaling's entry rows and columns,
     the gather into the schedule's permuted order and the expected pivot
     signs are made once, on the host; the values come from the problem's
-    arrays at every factorization."""
+    arrays at every factorization.  A batch of instances of the pattern
+    (`parallel/sparse_batched.py`: pr_diag (B, n), del_c (B,), the
+    problem's values with a leading lane axis) is factored in the same
+    calls, every front stack holding all lanes' fronts, and `factor_ok`
+    gives one flag per lane."""
 
     name = "sparse-augmented(device)"
+    lane_axis = True   # BatchedMPCKernel admits it
 
     def __init__(self, H: Optional[sp.spmatrix], A: sp.spmatrix, order: str = "auto",
                  max_supernode: int = 128, fact_dtype=None,
@@ -210,10 +218,12 @@ class DeviceSparseAugmentedKKT:
         """K's values in its upper-CSC order (before the scaling): H's and
         A's values, then Σ and δ_c on the diagonals, summed by entry."""
         ix = self.device_idx(pr_diag.device)
-        h = (prob.h_vals[ix["h_sel"]] if self.H is not None
-             else pr_diag.new_zeros(0))
+        lanes = pr_diag.shape[:-1]
+        h = (prob.h_vals[..., ix["h_sel"]] if self.H is not None
+             else pr_diag.new_zeros(lanes + (0,)))
         del_c = torch.as_tensor(del_c, dtype=pr_diag.dtype, device=pr_diag.device)
-        return segment_sum(torch.cat([h, prob.a_vals, pr_diag, del_c.expand(self.m)]),
+        dc = del_c[..., None].expand(lanes + (self.m,))
+        return segment_sum(torch.cat([h, prob.a_vals, pr_diag, dc], dim=-1),
                            ix["lengths"], ix["order"])
 
     def factorize(self, prob, pr_diag, del_c):
@@ -221,9 +231,10 @@ class DeviceSparseAugmentedKKT:
         kv = self.assemble(prob, pr_diag, del_c)
         # K2.5 symmetric scaling: Ks = Ds K Ds with Ds = |diag(K)|^-1/2;
         # quasi-definiteness and the pivot signs are preserved.
-        kdiag = kv[ix["alldiag_pos"]].abs()
+        kdiag = kv[..., ix["alldiag_pos"]].abs()
         scale = torch.rsqrt(torch.clamp(kdiag, min=torch.finfo(kv.dtype).tiny))
-        kv = (kv * scale[ix["entry_row"]] * scale[ix["entry_col"]])[ix["value_gather"]]
+        kv = (kv * scale[..., ix["entry_row"]]
+              * scale[..., ix["entry_col"]])[..., ix["value_gather"]]
         if self.fact_dtype is not None and kv.dtype != self.fact_dtype:
             # Mixed precision: the MPC kernel's iterative refinement against
             # the float64 kkt_mul recovers the accuracy
@@ -235,15 +246,16 @@ class DeviceSparseAugmentedKKT:
 
     def solve(self, factors, rx, ry):
         ldl, scale = factors
-        rhs = torch.cat([rx, ry]) * scale
+        rhs = torch.cat([rx, ry], dim=-1) * scale
         out_dtype = rhs.dtype
         if self.fact_dtype is not None and rhs.dtype != self.fact_dtype:
             rhs = rhs.to(self.fact_dtype)
         sol = SC.solve_batched_ldl(self.bs, ldl, rhs, inverse=self.inverse).to(out_dtype)
         sol = sol * scale
-        return sol[: self.n], sol[self.n:]
+        return sol[..., : self.n], sol[..., self.n:]
 
     def factor_ok(self, factors):
+        """The pivots' inertia: a 0-d bool tensor, or one flag per lane."""
         ldl, scale = factors
         return SC.factor_ok_batched_ldl(ldl, self.device_idx(scale.device)["signs"])
 

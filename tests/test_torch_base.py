@@ -250,7 +250,8 @@ def test_port_never_imports_jax():
                    "models/suite.py", "native/__init__.py", "solver/host.py",
                    "solver/sparse_common.py", "solver/sparse_lp.py",
                    "solver/sparse_qp.py", "ops/sparse_chol.py", "ops/ldl_batched.py",
-                   "ops/krylov.py", "solver/sparse_condensed.py"}
+                   "ops/krylov.py", "solver/sparse_condensed.py",
+                   "parallel/sparse_batched.py", "utils/roofline.py", "utils/profiling.py"}
     assert new_modules <= {f.relative_to(PORT_DIR).as_posix() for f in sources}
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []

@@ -304,3 +304,84 @@ def test_sub_block_diagonal_factor_inverts_the_block(n, dtype):
     torch.testing.assert_close(D, torch.linalg.cholesky(A), rtol=tol, atol=tol)
     torch.testing.assert_close(Dinv @ D, torch.eye(n, dtype=dtype), rtol=tol, atol=tol)
     assert bool((torch.triu(Dinv, 1) == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# The library factorization on the CPU: SciPy's LAPACK, bit-equal to the
+# JAX package's `jax.scipy.linalg.cholesky` (jaxlib takes its LAPACK from
+# SciPy), under one and four torch threads.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(params=[1, 4], ids=["1-thread", "4-threads"])
+def torch_threads(request):
+    before = torch.get_num_threads()
+    torch.set_num_threads(request.param)
+    yield request.param
+    torch.set_num_threads(before)
+
+
+def jax_cholesky(A):
+    import jax.numpy as jnp
+    import jax.scipy.linalg as jsl
+
+    return np.asarray(jsl.cholesky(jnp.asarray(A), lower=True))
+
+
+def bit_equal(L, want):
+    """Equal bits, NaN where the reference has NaN (a failed factor: the
+    reference fills the whole matrix, the port its diagonal)."""
+    L = np.asarray(L)
+    if np.isnan(want).any():
+        return bool(np.isnan(np.diagonal(L)).any())
+    return np.array_equal(L, want)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_lapack_cholesky_bit_equal_to_jax_on_a_stack(dtype, torch_threads):
+    """A seeded SPD stack: each factor bit for bit the reference's, and a
+    non-SPD member NaN on its diagonal, the others untouched."""
+    A = spd_stack(4, 70, dtype, seed=11)
+    L = K1._lapack_cholesky(torch.from_numpy(A)).numpy()
+    assert all(np.array_equal(L[i], jax_cholesky(A[i])) for i in range(4))
+    A[2] = not_spd(70, dtype, seed=13)
+    L = K1._lapack_cholesky(torch.from_numpy(A)).numpy()
+    assert not diag_ok(L[2]) and all(diag_ok(L[i]) for i in (0, 1, 3))
+    one = K1.dense_cholesky(torch.from_numpy(A[0])).numpy()
+    assert np.array_equal(one, jax_cholesky(A[0]))
+
+
+def test_lapack_cholesky_bit_equal_to_jax_on_transport(torch_threads, monkeypatch):
+    """Every matrix the dense path factors while the runner solves the
+    medium tier's transport_12x15_0 (tests/test_torch_pipeline.py), the
+    δ_w = 1e-8 trials of iterations 11 and 14 among them, where MKL's and
+    OpenBLAS's verdicts part (ROADMAP.md Queue 3): the port's factor is
+    the reference's, bit for bit."""
+    import madqp_tpu_torch as mt
+    from madqp_tpu_torch.ops import kkt
+    from madqp_tpu_torch.solver.mpc import MPCKernel
+    from test_torch_pipeline import T, medium_problems, options
+
+    seen, k = [], [0]
+    iteration = MPCKernel.iteration
+
+    def counted(self, p, state):
+        k[0] = state.k
+        return iteration(self, p, state)
+
+    def recording(backend):
+        chol = K1.select_cholesky(backend)
+
+        def factor(M):
+            L = chol(M)
+            seen.append((k[0], M.numpy().copy(), L.numpy().copy()))
+            return L
+        return factor
+
+    monkeypatch.setattr(MPCKernel, "iteration", counted)
+    monkeypatch.setattr(kkt, "select_cholesky", recording)
+    T.run_instance("transport_12x15_0", medium_problems()[1]["transport_12x15_0"],
+                   options(mt, "dense", "cpu"))
+    assert {11, 14} <= {it for it, _, _ in seen}
+    for it, M, L in seen:
+        assert bit_equal(L, jax_cholesky(M)), it

@@ -657,3 +657,61 @@ def test_sparse_qp_on_card_matches_cpu(cuda, system, options):
     assert abs(got.iter - want.iter) <= (8 if options else 1)
     assert got.objective == pytest.approx(want.objective, rel=1e-8)
     assert launched > 0
+
+
+# ---------------------------------------------------------------------------
+# The shared-pattern sparse batch (parallel/sparse_batched.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["normal-f64", "normal-mixed", "augmented"])
+def test_sparse_batch_on_card_matches_cpu(cuda, case):
+    """solve_sparse_batched on the card (every front stack of all lanes in
+    one K1-batched or K2-batched launch) against the same batch on the CPU:
+    each lane's status and iterations equal (within 8 with the float32
+    phase), objective to 1e-9; the kernels launched once per front stack
+    and trial, as for one instance."""
+    from madqp_tpu_torch.ops import ldl_batched as K2
+
+    if case == "augmented":
+        qps = [mt.random_qp(n=36, m=18, seed=s, ineq=True) for s in range(4)]
+        kw = dict(kkt_system="augmented")
+    else:
+        qps = [mt.banded_sparse_lp(n=400, m=200, band=4, seed=s) for s in range(4)]
+        kw = dict(factorization_dtype="float32", max_refine_steps=2) if case == "normal-mixed" else {}
+    before = K1.cholesky_lower.launches + K2.ldl_lower_batched.launches
+    got = mt.solve_sparse_batched(qps, device=cuda, tol=1e-8, print_level=0, **kw)
+    launched = K1.cholesky_lower.launches + K2.ldl_lower_batched.launches - before
+    want = mt.solve_sparse_batched(qps, device="cpu", tol=1e-8, print_level=0, **kw)
+    band = 8 if case == "normal-mixed" else 0
+    for g, w in zip(got, want):
+        assert g.status == w.status == mt.Status.SOLVE_SUCCEEDED
+        assert abs(g.iter - w.iter) <= band
+        assert g.objective == pytest.approx(w.objective, rel=1e-9)
+    assert launched > 0
+
+
+def test_sparse_batch_is_deterministic_on_card(cuda):
+    """The lane-stacked normal matrices assembled and factored twice from
+    one iterate per lane: every panel bit-equal, one flag per lane, each
+    lane's panels within 1e-12 of the CPU's single factorization."""
+    from madqp_tpu_torch.parallel.sparse_batched import _stack_problem
+    from madqp_tpu_torch.solver.sparse_lp import DeviceSparseNormalKKT
+
+    stds = [mt.build_standard_form_sparse(mt.banded_sparse_lp(n=400, m=200, band=4, seed=s))[0]
+            for s in range(3)]
+    kkt = DeviceSparseNormalKKT(stds[0].A, mode="batched")
+    pr = np.random.default_rng(0).uniform(0.5, 2.0, (3, stds[0].n))
+    prob = _stack_problem(stds, kkt, torch.float64, cuda)
+    dc = torch.full((3,), -1e-8, dtype=torch.float64, device=cuda)
+    a = kkt.factorize(prob, torch.as_tensor(pr, device=cuda), dc)
+    b = kkt.factorize(prob, torch.as_tensor(pr, device=cuda), dc)
+    assert all(torch.equal(u, v) for u, v in zip(a[0], b[0]))
+    assert kkt.factor_ok(a).tolist() == [True] * 3
+    cpu = _stack_problem(stds, kkt, torch.float64, "cpu")
+    for lane in range(3):
+        one = cpu._replace(**{f: getattr(cpu, f)[lane] for f in
+                              ("c0", "c", "b", "has_lb", "has_ub", "a_vals")})
+        w = kkt.factorize(one, torch.as_tensor(pr[lane]), torch.tensor(-1e-8, dtype=torch.float64))
+        for g, p in zip(a[0], w[0]):
+            assert float((g[lane].cpu() - p).abs().max()) <= 1e-12 * float(p.abs().max())

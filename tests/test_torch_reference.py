@@ -53,6 +53,12 @@ the headline options (float32 factorization, one refinement step):
     cvxqp, float64 and --mixed-precision --endgame krylov (phase 17).
     laplqp_150 is left out: the smoke does not run it (its host symbolic
     phase alone takes minutes).
+  * sparse_batched: per-lane status / iterations / objective of
+    solve_sparse_batched on 16 same-pattern instances (seeds 0-15) of each
+    run of SPARSE_BATCHED_RUNS, stored with its generator, keywords, seeds
+    and options, which chip_smoke.py reads (phase 18), and the JAX batch's
+    first wall on the CPU that wrote it (about 13-60 s each, chain_qp's
+    about 280 s).
 The card's machine has no JAX, so the smoke reads them from the file; this
 test regenerates them on the CPU and asserts the committed file still
 holds them.
@@ -464,6 +470,54 @@ def real_mm_reference():
             for f in sorted(os.listdir(data))}
 
 
+# Phase 18: the shared-pattern sparse batch at the reference's sweep sizes
+# (benchmarks/bench_sparse_batched.py: batch 16, banded_sparse_lp(2000,
+# 1000, band=5), grid_lp(g=40); its options, tol 1e-8, and with
+# --mixed-precision the float32 factorization and two refinement steps),
+# and the augmented system on chain_qp(n=10000).  Each run's generator,
+# keywords, seeds and options are stored beside its per-lane records, and
+# the smoke reads them from there.
+SPARSE_BATCH = 16
+SPARSE_F32 = dict(factorization_dtype="float32", max_refine_steps=2)
+SPARSE_BATCHED_RUNS = {
+    "bandedlp_f64": ("banded_sparse_lp", dict(n=2000, m=1000, band=5), {}),
+    "bandedlp_mixed": ("banded_sparse_lp", dict(n=2000, m=1000, band=5), SPARSE_F32),
+    "gridlp_f64": ("grid_lp", dict(g=40), {}),
+    "gridlp_mixed": ("grid_lp", dict(g=40), SPARSE_F32),
+    "chainqp_f64": ("chain_qp", dict(n=10000), {}),
+}
+
+
+def sparse_batch_problems(pkg, generator, kwargs, seeds):
+    """The batch's instances from the package `pkg` (chain_qp lives in its
+    models.suite)."""
+    suite = importlib.import_module(pkg.__name__ + ".models.suite")
+    gen = getattr(pkg, generator, None) or getattr(suite, generator)
+    return [gen(seed=s, **kwargs) for s in seeds]
+
+
+def sparse_batched_reference(runs=tuple(SPARSE_BATCHED_RUNS), seeds=range(SPARSE_BATCH)):
+    """Per-lane status / iterations / objective of the reference's
+    solve_sparse_batched for each run (with its generator, keywords, seeds
+    and options), and its warm wall on this CPU."""
+    import time
+
+    from madqp_tpu.parallel import solve_sparse_batched
+
+    out = {}
+    for name in runs:
+        generator, kwargs, extra = SPARSE_BATCHED_RUNS[name]
+        options = dict(tol=1e-8, print_level=40, **extra)
+        qps = sparse_batch_problems(mq, generator, kwargs, seeds)
+        t0 = time.perf_counter()
+        stats = solve_sparse_batched(qps, **options)
+        recs = [_record(st) for st in stats]
+        out[name] = {"generator": generator, "kwargs": kwargs, "seeds": list(seeds),
+                     "options": options, "cpu_first_s": time.perf_counter() - t0,
+                     **{key: [r[key] for r in recs] for key in ("status", "iter", "objective")}}
+    return out
+
+
 def generate_reference():
     return {**dense_reference(), "batched512": batched_reference(range(BATCH)),
             "qp_layer64": layer_reference(), "two_stage_1024": two_stage_reference(),
@@ -472,7 +526,8 @@ def generate_reference():
             "sparse_xlarge": sparse_xlarge_reference(),
             "supernodal_xlarge": supernodal_xlarge_reference(),
             "augmented_xlarge": augmented_xlarge_reference(),
-            "condensed_xlarge": condensed_xlarge_reference()}
+            "condensed_xlarge": condensed_xlarge_reference(),
+            "sparse_batched": sparse_batched_reference()}
 
 
 def _flatten(ref):
@@ -567,6 +622,26 @@ def test_committed_real_mm_matches_jax():
         _same_record(committed[name], want, name)
 
 
+def test_committed_sparse_batched_matches_jax():
+    """sparse_batched: each run's description is SPARSE_BATCHED_RUNS' with
+    16 seeds, every lane solved; the float64 banded run's first four lanes
+    recomputed as a batch of their own (lanes of one pattern are
+    independent): status and iterations equal, objective to 1e-10."""
+    committed = json.loads(REF_PATH.read_text())["sparse_batched"]
+    assert committed.keys() == SPARSE_BATCHED_RUNS.keys()
+    for name, (generator, kwargs, extra) in SPARSE_BATCHED_RUNS.items():
+        rec = committed[name]
+        assert (rec["generator"], rec["kwargs"]) == (generator, kwargs), name
+        assert rec["options"] == dict(tol=1e-8, print_level=40, **extra), name
+        assert rec["seeds"] == list(range(SPARSE_BATCH)), name
+        assert rec["status"] == [1] * SPARSE_BATCH, name
+    got = committed["bandedlp_f64"]
+    fresh = sparse_batched_reference(("bandedlp_f64",), range(4))["bandedlp_f64"]
+    assert fresh["status"] == got["status"][:4]
+    assert fresh["iter"] == got["iter"][:4]
+    np.testing.assert_allclose(fresh["objective"], got["objective"][:4], rtol=1e-10)
+
+
 if __name__ == "__main__":
     import jax
 
@@ -578,7 +653,8 @@ if __name__ == "__main__":
                   "sparse_xlarge": sparse_xlarge_reference,
                   "supernodal_xlarge": supernodal_xlarge_reference,
                   "augmented_xlarge": augmented_xlarge_reference,
-                  "condensed_xlarge": condensed_xlarge_reference}
+                  "condensed_xlarge": condensed_xlarge_reference,
+                  "sparse_batched": sparse_batched_reference}
         ref = json.loads(REF_PATH.read_text())
         ref.update({k: makers[k]() for k in keys})
     else:

@@ -290,3 +290,68 @@ def test_entry_points_default_to_cuda():
 
     assert inspect.signature(T.DeviceSparseCholesky).parameters["device"].default == "cuda"
     assert mt.ops.pallas_chol.H100_BATCHED_MAX_N[torch.float64] == 163
+
+
+def _lane_values(v0, lanes=3, seed=0):
+    rng = np.random.default_rng(seed)
+    return np.stack([v0 * (1.0 + 0.1 * rng.random(v0.shape)) for _ in range(lanes)])
+
+
+# (pattern, order, schedule mode, signed): buckets and scans, a level
+# schedule's chains, and the signed LDL^T with chains.
+LANES = [("random", "amd", "greedy", False), ("banded", "rcm", "level", False),
+         ("chain-kkt", "amd", "level", True)]
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["chol", "inverse"])
+@pytest.mark.parametrize("pattern,order,mode,signed", LANES,
+                         ids=["-".join(c[:3]) for c in LANES])
+def test_lane_axis_matches_vmapped_reference(pattern, order, mode, signed, inverse):
+    """Values (B, n_a) of one pattern: every front stack holds all lanes'
+    fronts, and the factors, the per-lane factor_ok flags and the solves of
+    (B, n) right-hand sides equal `jax.vmap` of the reference's; each lane's
+    factor is the single instance's, bit for bit (the chains' carried
+    update kept per lane)."""
+    if signed:
+        A, sg = _quasidefinite(chain=True)
+    else:
+        A = PATTERNS[pattern]()
+    bj = J.analyze_batched(A, order=order, schedule_mode=mode)
+    bt = T.analyze_batched(A, order=order, schedule_mode=mode)
+    vals = _lane_values(bt.permute_values(A))
+    b = np.random.default_rng(4).standard_normal(vals.shape[:1] + A.shape[:1])
+    if signed:
+        sj, st = J.bucket_signs(bj, sg), T.bucket_signs(bt, sg)
+
+        def jfac(v):
+            return J.factorize_batched_ldl(bj, v, signs=sj, pivot_floor=1e-10, inverse=inverse)
+
+        def tfac(v):
+            return T.factorize_batched_ldl(bt, v, signs=st, pivot_floor=1e-10, inverse=inverse)
+        jsolve, tsolve = J.solve_batched_ldl, T.solve_batched_ldl
+        jok, tok = (lambda f: J.factor_ok_batched_ldl(f, sj)), (lambda f: T.factor_ok_batched_ldl(f, st))
+    else:
+        def jfac(v):
+            return J.factorize_batched(bj, v, inverse=inverse)
+
+        def tfac(v):
+            return T.factorize_batched(bt, v, inverse=inverse)
+        jsolve, tsolve = J.solve_batched, T.solve_batched
+        jok, tok = J.factor_ok_batched, (lambda f: T.factor_ok_batched(f, lanes=(3,)))
+    fj = jax.jit(jax.vmap(jfac))(jnp.asarray(vals))
+    ft = tfac(torch.as_tensor(vals))
+    panels_t, panels_j = (ft[0], fj[0]) if signed else (ft, fj)
+    _close_panels(panels_t, panels_j)
+    assert tok(ft).tolist() == np.asarray(jax.vmap(jok)(fj)).tolist() == [True] * 3
+    x = tsolve(bt, ft, torch.as_tensor(b), inverse=inverse).numpy()
+    xj = np.asarray(jax.vmap(lambda f, r: jsolve(bj, f, r, inverse=inverse))(fj, jnp.asarray(b)))
+    np.testing.assert_allclose(x, xj, rtol=0, atol=1e-9 * np.abs(xj).max())
+    for i in range(3):
+        one = tfac(torch.as_tensor(vals[i]))
+        one = one[0] if signed else one
+        assert all(torch.equal(p[i], q) for p, q in zip(panels_t, one))
+    # one lane's failed factorization is flagged in that lane only (a NaN
+    # value: the floored pivots keep their signs whatever the values)
+    bad = vals.copy()
+    bad[1, :] = np.nan
+    assert tok(tfac(torch.as_tensor(bad))).tolist() == [True, False, True]

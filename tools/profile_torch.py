@@ -104,30 +104,19 @@ def solve(torch, mt, qp, entry, options):
 
 
 def device_profile(torch, run):
-    """Profile one call of `run`: returns (its result, its wall in s,
-    kernel busy us by layer, launches by layer, host us in CUDA runtime
-    calls by name)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Profile one call of `run` (`utils/profiling.py::device_profile`):
+    returns (its result, its wall in s, kernel busy us by layer, launches
+    by layer, host us in CUDA runtime calls by name)."""
+    from madqp_tpu_torch.utils import profiling
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    out, prof = profiling.device_profile(run)
     busy_us, launches = collections.Counter(), collections.Counter()
-    runtime_us = collections.Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            # device_time_total replaced cuda_time_total in newer releases
-            busy_us[layer_of(e.name)] += (e.device_time_total
-                                          if hasattr(e, "device_time_total")
-                                          else e.cuda_time_total)
-            launches[layer_of(e.name)] += 1
-        elif e.name.startswith("cuda"):  # a CUDA runtime call, on the host
-            runtime_us[e.name] += e.cpu_time_total
-    return out, wall, busy_us, launches, runtime_us
+    for name, ms in prof["kernel_ms_by_name"].items():
+        busy_us[layer_of(name)] += ms * 1e3
+    for name, count in prof["launches_by_name"].items():
+        launches[layer_of(name)] += count
+    runtime_us = collections.Counter({k: v * 1e3 for k, v in prof["runtime_ms_by_name"].items()})
+    return out, prof["wall_s"], busy_us, launches, runtime_us
 
 
 def summary(wall, busy_us, launches, runtime_us, **extra):
