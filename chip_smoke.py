@@ -49,7 +49,9 @@ Phases (each raises on failure, so any failure exits non-zero):
               autosolve_n2000 entry;
   8. variants random_qp(500, 200, seed=0) with each dense KKT variant of
               the reference's n500_variants (blocked, inverse, K2 with LU,
-              K2.5 with the signed blocked LDL^T); these launch no K8;
+              K2.5 with the signed blocked LDL^T, whose K (800, 800) takes
+              seven K2-batched launches per trial: blocked_ldl on the card
+              is ldl_blocks); these launch no K8;
   9. batched K1 against its plain version on (B, n, n) stacks at
               BATCHED_SHAPES in float32 and float64, at the edges of every
               route of pallas_chol.batched_route (registers for n <= 32,
@@ -213,7 +215,29 @@ Phases (each raises on failure, so any failure exits non-zero):
               batches twice,
               bit-equal, their warm wall against the serial loop of the
               port's single supernodal solves, and K1 `cta` on a captured
-              (16 x 8, 128, 128) stack against cholesky_ex.
+              (16 x 8, 128, 128) stack against cholesky_ex;
+ 19. backends every dense KKT backend of a single solve on a batch
+              (BatchedMPCSolver, bench.py's batched options, endgame="f64")
+              against the reference's batched_backends records: (a)
+              batched-512 under condensed blocked, condensed
+              solve_mode="inverse" with "dense" and "pallas", K2 and K2.5
+              with LU and with linear_solver="blocked" (the signed LDL^T:
+              K2-batched on K (512, 58, 58)); (b) the n = 500 QPs (seeds
+              0-3) under k2-blocked (K (4, 800, 800): seven K2-batched
+              launches of 128-wide diagonal blocks per trial) and condensed
+              blocked; (c) four random_qp(2000, 1000) with "blocked" (W
+              (4, 2500, 2500): the panel Cholesky's K8 updates, each one
+              launch for the four lanes, len(panel_update_shapes(2500)) per
+              trial of W): every lane's status, iterations (within 1) and
+              objective (1e-8), and each run's launches; then K8's lane
+              axis at (c)'s launch shapes (4 lanes, each a view into its own
+              matrix) against its plain version (SYRK_TOL), timed beside
+              the plain version, torch.baddbmm and the bound of the four
+              updates, panel_chol on 1, 2 and 4 lanes with
+              len(panel_update_shapes(2500)) K8 launches each; and
+              K2-batched on BACKEND_LDL_STACKS in float32 and float64, with
+              and without the floor, at ldl_batched.TOL with equal pivot
+              signs, timed beside the plain version and the bound.
 Phase 6 also holds and times K8 at every launch shape of the panel
 Cholesky of the largest m that phase 15 factors (blocked_dense.
 panel_update_shapes), in float32 and float64.
@@ -229,7 +253,8 @@ augmented fronts' shape, with the shared tier's occupancy; the launches of K1 in
 13's, those of K1-batched phase 12's, phase 16's float64 runs', phase
 17's condensed runs' and phase 18's on its batched tiers, those of
 K1-lanes phase 16's and 17's on the lane axis, those of K2-batched phases
-16, 17 and 18's);
+7, 8, 15 (the card's blocked_ldl: ops/blocked_dense.py::ldl_blocks), 16,
+17, 18 and 19's, those of K8 and K1-batched phase 19's too);
 the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -348,8 +373,11 @@ SUPERNODAL = "bandedlp_30000_0"
 FORCED_SUPERNODAL = ("gridlp_100_0", "staircase_2000p24_0")
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name}  [{time.perf_counter() - _T0:.1f} s into the run]", flush=True)
 
 
 def check(cond, msg):
@@ -787,16 +815,33 @@ def blocked_phase(torch, mt, k1, k8, ref):
     check(launches == len(shapes) * fact, "K8 launch count off the panel structure")
     check(len(shapes) == 18, f"{len(shapes)} K8 launches per trial, not 18")
     check(k1.cholesky_lower.launches == 0, "the blocked path launched K1")
-    return launches, fact
+    n2 = k2_launches()
+    print(f"  K2-batched launches {n2} (a float64 trial's blocked_ldl below order 1024)")
+    return launches, fact, n2
+
+
+def k2_launches():
+    from madqp_tpu_torch.ops import ldl_batched
+
+    return ldl_batched.ldl_lower_batched.launches
 
 
 def variants_phase(mt, k1, k8, ref):
+    """Phase 8; returns the K2-batched launches (the card's blocked_ldl:
+    one per 128-wide diagonal block of each signed factorization)."""
     phase("8. dense KKT variants: random_qp(500, 200, seed=0)")
-    reset_counts(k1, k8)
+    launches = 0
     for name, want in ref["n500_variants"].items():
+        reset_counts(k1, k8)
         solve_checked(mt, mt.random_qp(500, 200, seed=0, ineq=True), want,
                       iter_slack=1, **want["options"])
-    check(k8.syrk_update.launches == 0, "an n = 500 variant launched K8")
+        check(k8.syrk_update.launches == 0, f"the n = 500 variant {name} launched K8")
+        print(f"  {name}: K2-batched launches {k2_launches()}")
+        if name == "k2.5-blocked":   # K (800, 800): 7 blocks of 128 per trial
+            check(k2_launches() > 0 and k2_launches() % 7 == 0,
+                  f"k2.5-blocked: {k2_launches()} K2-batched launches")
+        launches += k2_launches()
+    return launches
 
 
 def spd_stack(torch, batch, n, dtype, seed):
@@ -1336,7 +1381,9 @@ def sparse_phase(torch, mt, k1, k8, ref, smi):
     """Phase 15: the xlarge tier's normal-equations members through the
     runner's --backend sparse-device on the card, in float64 and with the
     float32 phase and the host endgame; then the determinism of gridlp's
-    assembly and factorization.  Returns the K8 launches of the phase."""
+    assembly and factorization.  Returns the K8 and K2-batched launches of
+    the phase (K2: the float64 blocked_ldl of a normal matrix below order
+    1024)."""
     import tempfile
 
     from madqp_tpu_torch.io.mps_write import write_mps
@@ -1347,7 +1394,7 @@ def sparse_phase(torch, mt, k1, k8, ref, smi):
           "--backend sparse-device --sparse-kkt auto")
     runner = runner_module()
     want = ref["host_xlarge"]
-    fails, launches, egs, matmul = [], 0, {}, set()
+    fails, launches, egs, matmul, ldl = [], 0, {}, set(), 0
     # What the dense-column member hands the host endgame (called from the
     # sparse drivers' shared tail, sparse_qp._solve_phases).
     orig_endgame = sparse_qp._host_endgame
@@ -1379,6 +1426,7 @@ def sparse_phase(torch, mt, k1, k8, ref, smi):
                 wall = time.perf_counter() - t0
                 n8 = k8.syrk_update.launches
                 launches += n8
+                ldl += k2_launches()
                 kkt = last_kkt()
                 panel = kkt.m >= PANEL_MIN
                 if kkt.assembly == "matmul":
@@ -1403,7 +1451,8 @@ def sparse_phase(torch, mt, k1, k8, ref, smi):
                       f"(host ref {w['iter']}, dense-normal ref {dense[label]['iter']}) "
                       f"rel={rel:.2e} to the host record, {rel_dense:.2e} to the "
                       f"dense-normal record (bound {bound:.1e}) K8 launches {n8} "
-                      f"({per} per factorization) solve={rec['total_time']:.3f} s "
+                      f"({per} per factorization) K2-batched {k2_launches()} "
+                      f"solve={rec['total_time']:.3f} s "
                       f"endgame={rec.get('endgame_backend', '-')} "
                       f"{rec.get('endgame_time', 0.0):.3f} s wall={wall:.3f} s", flush=True)
                 ok = (rec["status"] == 1 and kkt.m == w["m"]
@@ -1431,7 +1480,7 @@ def sparse_phase(torch, mt, k1, k8, ref, smi):
     for msg in fails:
         print(f"  FAIL {msg}")
     check(not fails, f"sparse LP: {len(fails)} failures")
-    return launches
+    return launches, ldl
 
 
 def determinism_check(torch, mt, qp):
@@ -1875,6 +1924,7 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi, save_fronts=None):
     import tempfile
 
     from madqp_tpu_torch.io.mps_write import write_mps
+    from madqp_tpu_torch.ops import blocked_dense as BD
     from madqp_tpu_torch.ops import sparse_chol as SC
     from madqp_tpu_torch.solver import sparse_condensed, sparse_qp
 
@@ -1895,7 +1945,7 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi, save_fronts=None):
     trials, symbolic, fronts = [0], [0.0], {}
     kkts = (sparse_qp.DeviceSparseAugmentedKKT, sparse_condensed.DeviceSparseCondensedKKT)
     orig = {cls: (cls.__init__, cls.factorize) for cls in kkts}
-    orig_ldl = SC.ldl_lower_batched
+    orig_ldl = BD.ldl_lower_batched
     capture = [None]
 
     def patch(cls):
@@ -1927,7 +1977,7 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi, save_fronts=None):
     fails, launches, k1_batched, k1_lanes = [], 0, 0, 0
     for cls in kkts:
         patch(cls)
-    SC.ldl_lower_batched = captured
+    BD.ldl_lower_batched = captured
     try:
         for name, label, args in runs:
             argv = ["--backend", "sparse-device"] + args
@@ -1982,7 +2032,7 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi, save_fronts=None):
     finally:
         for cls in kkts:
             cls.__init__, cls.factorize = orig[cls]
-        SC.ldl_lower_batched = orig_ldl
+        BD.ldl_lower_batched = orig_ldl
     for msg in fails:
         print(f"  FAIL {msg}")
     check(not fails, f"sparse QP: {len(fails)} failures")
@@ -2193,6 +2243,7 @@ def sparse_batch_phase(torch, mt, k1, k8, k2, ref, smi):
     the float64 LP batches twice, bit-equal, and timed against the serial
     loop of single solves.  Returns (K1 launches of the batched tiers,
     K2-batched launches)."""
+    from madqp_tpu_torch.ops import blocked_dense as BD
     from madqp_tpu_torch.ops import sparse_chol as SC
     from madqp_tpu_torch.solver import sparse_lp, sparse_qp
 
@@ -2202,7 +2253,7 @@ def sparse_batch_phase(torch, mt, k1, k8, k2, ref, smi):
     runs = ref["sparse_batched"]
     kkts = (sparse_lp.DeviceSparseNormalKKT, sparse_qp.DeviceSparseAugmentedKKT)
     orig = {cls: cls.factorize for cls in kkts}
-    orig_chol, orig_ldl = SC.cholesky_lower_routed, SC.ldl_lower_batched
+    orig_chol, orig_ldl = SC.cholesky_lower_routed, BD.ldl_lower_batched
     trials, used = collections.Counter(), {}
     cur, fronts = [None], {}
 
@@ -2248,7 +2299,7 @@ def sparse_batch_phase(torch, mt, k1, k8, k2, ref, smi):
     fails, k1_batched, k2_launches = [], 0, 0
     for cls in kkts:
         patch(cls)
-    SC.cholesky_lower_routed, SC.ldl_lower_batched = captured_chol, captured_ldl
+    SC.cholesky_lower_routed, BD.ldl_lower_batched = captured_chol, captured_ldl
     try:
         for name, run in runs.items():
             qps = sparse_batch_problems(mt, run)
@@ -2328,11 +2379,193 @@ def sparse_batch_phase(torch, mt, k1, k8, k2, ref, smi):
     finally:
         for cls in kkts:
             cls.factorize = orig[cls]
-        SC.cholesky_lower_routed, SC.ldl_lower_batched = orig_chol, orig_ldl
+        SC.cholesky_lower_routed, BD.ldl_lower_batched = orig_chol, orig_ldl
     for msg in fails:
         print(f"  FAIL {msg}")
     check(not fails, f"sparse batch: {len(fails)} failures")
     return k1_batched, k2_launches
+
+
+# Phase 19.  K2-batched on the batch's new stacks: K of batched-512 (42 + 16),
+# W and S of its float64 phase, and a 128-wide diagonal block of the n = 500
+# batch's K (4, 800, 800), float32 and float64.
+BACKEND_LDL_STACKS = ((512, 58), (512, 42), (512, 16), (4, 128))
+BACKEND_PANEL_ORDER = 2500   # W of random_qp(2000, 1000): run (c)'s panel Cholesky
+BACKEND_PANEL_LANES = (1, 2, 4)
+
+
+def backend_k8_check(torch, k8, n=BACKEND_PANEL_ORDER, lanes=4):
+    """K8's lane axis at the launch shapes of the panel Cholesky of order n
+    on `lanes` lanes, each lane a view into its own padded matrix as
+    panel_chol makes it: against the plain version (SYRK_TOL), float32 and
+    float64, and timed beside the plain version, torch.baddbmm (the library
+    call) and the bound of `lanes` updates (roofline.syrk_ops per lane).
+    Then panel_chol on 1, 2 and 4 lanes: K8 launches per factorization =
+    len(panel_update_shapes(n)) at every lane count, each lane's factor
+    against the 2-D call of its matrix.  Returns (float32 max abs error,
+    timings per (dtype, shape), per-factorization sums)."""
+    from madqp_tpu_torch.ops.blocked_dense import panel_chol, panel_update_shapes
+    from madqp_tpu_torch.utils import roofline
+
+    shapes = panel_update_shapes(n)
+    err, timings, sums = 0.0, {}, {}
+    for dname in ("float32", "float64"):
+        dtype = getattr(torch, dname)
+        total = collections.Counter()
+        for j, (r, c, k) in enumerate(shapes):
+            g = torch.Generator(device="cuda").manual_seed(300 + j)
+            S = torch.randn((lanes, r + 64, c + 64), generator=g, dtype=dtype, device="cuda")
+            Z = torch.randn((lanes, r + 64, k + 8), generator=g, dtype=dtype,
+                            device="cuda") / k ** 0.5
+            C, B = S[:, 64:, 64:], Z[:, 64:, 8:]
+            plain = k8.syrk_update_reference(C, B)
+            S0 = S.clone()
+            before = k8.syrk_update.launches
+            k8.syrk_update(C, B, out=C)
+            torch.cuda.synchronize()
+            launched = k8.syrk_update.launches - before
+            abs_err = float((C - plain).abs().max())
+            rel = abs_err / float(plain.abs().max())
+            S0[:, 64:, 64:] = C
+            kept = bool(torch.equal(S, S0))
+            check(launched == 1 and rel <= SYRK_TOL[dname] and kept,
+                  f"K8 lanes {dname} {lanes} x {(r, c, k)}: launches {launched}, "
+                  f"rel_err {rel:.2e} (tol {SYRK_TOL[dname]:g}), rest kept {kept}")
+            if dname == "float32":
+                err = max(err, abs_err)
+            Cc, O = C.clone(), torch.empty_like(C)
+            Bt = B[:, :c].mT
+            t = {"kernel": cuda_median_ms(torch, lambda: k8.syrk_update(Cc, B, out=O)),
+                 "plain": cuda_median_ms(torch, lambda: k8.syrk_update_reference(Cc, B)),
+                 "torch.baddbmm": cuda_median_ms(
+                     torch, lambda: torch.baddbmm(Cc, B, Bt, beta=1, alpha=-1))}
+            t["bound"], t["bound_by"] = bound_ms(
+                lanes * roofline.syrk_ops(r, c, k),
+                lanes * roofline.syrk_bytes(r, c, k, C.element_size()), dname)
+            timings[(dname, (r, c, k))] = t
+            for key in ("kernel", "plain", "torch.baddbmm", "bound"):
+                total[key] += t[key]
+            print(f"  K8 lanes {dname} {lanes} x (r, c, k)=({r}, {c}, {k}): rel_err={rel:.3e} "
+                  f"(tol {SYRK_TOL[dname]:g}) max_abs_err={abs_err:.3e}; ms: "
+                  + ", ".join(f"{key}={v:.4f}" for key, v in t.items() if key != "bound_by")
+                  + f" ({t['bound_by']}); kernel/baddbmm {t['kernel'] / t['torch.baddbmm']:.2f}",
+                  flush=True)
+        sums[dname] = dict(total)
+        print(f"  K8 lanes {dname}: one factorization of {lanes} x {n}^2 "
+              f"({len(shapes)} launches), summed over medians (ms): "
+              + ", ".join(f"{key}={v:.4f}" for key, v in total.items()))
+    # launches per factorization whatever the lane count
+    g = torch.Generator(device="cuda").manual_seed(n)
+    P = torch.randn((max(BACKEND_PANEL_LANES), n, n), generator=g, dtype=torch.float64,
+                    device="cuda")
+    A = P @ P.mT / n
+    A = 0.5 * (A + A.mT) + torch.eye(n, dtype=torch.float64, device="cuda")
+    del P
+    for lanes_n in BACKEND_PANEL_LANES:
+        before = k8.syrk_update.launches
+        L = panel_chol(A[:lanes_n])
+        torch.cuda.synchronize()
+        launched = k8.syrk_update.launches - before
+        one = float((L[-1] - panel_chol(A[lanes_n - 1])).abs().max() / L[-1].abs().max())
+        print(f"  panel_chol on {lanes_n} lane(s) of order {n}: K8 launches {launched} "
+              f"(panel_update_shapes: {len(shapes)}); last lane against its 2-D call "
+              f"{one:.2e}")
+        check(launched == len(shapes), f"panel_chol on {lanes_n} lanes: {launched} K8 launches")
+        check(one <= 1e-12, f"panel_chol lane against 2-D call: {one:.2e}")
+    return err, timings, sums
+
+
+def backend_ldl_check(torch, k2):
+    """K2-batched on BACKEND_LDL_STACKS, float32 and float64, with the
+    pivot floor (K2.5's float32 instance) and without: against the plain
+    version at ldl_batched.TOL, equal pivot signs; timed beside the plain
+    version and the bound.  Returns the timings."""
+    timings = {}
+    for dname in ("float32", "float64"):
+        dtype = getattr(torch, dname)
+        tol = k2.TOL[dname]
+        for B, n in BACKEND_LDL_STACKS:
+            F, sg = quasi_definite(torch, B, n, dtype, seed=7 * n + B)
+            for fl in (0.0, 1e-6):
+                s = sg if fl else None
+                L, d = k2.ldl_lower_batched(F, s, fl)
+                Lp, dp = k2.ldl_batched_reference(F, s, fl)
+                eL, ed = ldl_errors(L, d, Lp, dp)
+                signs = bool(torch.equal(torch.sign(d), torch.sign(dp)))
+                check(eL <= tol and ed <= tol and signs,
+                      f"K2 {dname} ({B}, {n}) floor {fl}: rel_err L {eL:.2e} d {ed:.2e} "
+                      f"(tol {tol:g}), signs equal {signs}")
+            t = {"kernel": cuda_median_ms(torch, lambda: k2.ldl_lower_batched(F)),
+                 "plain": cuda_median_ms(torch, lambda: k2.ldl_batched_reference(F),
+                                         runs=5, burst=1)}
+            t["bound"], t["bound_by"] = ldl_bound_ms(B, n, F.element_size(), dname)
+            timings[(dname, (B, n))] = t
+            print(f"  K2 {dname} ({B}, {n}, {n}): rel_err L {eL:.2e} d {ed:.2e} (tol {tol:g}), "
+                  f"pivot signs equal; ms: kernel {t['kernel']:.4f}, plain {t['plain']:.3f}, "
+                  f"bound {t['bound']:.4f} ({t['bound_by']})", flush=True)
+    return timings
+
+
+def backends_phase(torch, mt, k1, k8, k2, ref):
+    """Phase 19: every dense KKT backend of a single solve on a batch
+    (BatchedMPCSolver), against the reference's batched_backends records:
+    (a) batched-512 under condensed blocked, condensed inverse (dense and
+    pallas), K2 and K2.5 with LU and with the blocked signed LDL^T; (b)
+    the n = 500 headline QPs (seeds 0-3) under k2-blocked (K (4, 800, 800):
+    seven K2-batched launches per trial) and condensed-blocked; (c) four
+    random_qp(2000, 1000) under condensed-blocked (W (4, 2500, 2500): the
+    panel Cholesky, len(panel_update_shapes(2500)) stacked K8 launches per
+    trial of W).  Every lane's status, iterations (within 1) and objective
+    (1e-8); the launches of each run read just after it.  Then K8's lane
+    axis and K2-batched on the batch's stacks against their plain
+    versions.  Returns (K1 launches, K8 launches, K2-batched launches,
+    K8 float32 error, K8 timings, K8 sums, K2 timings)."""
+    from madqp_tpu_torch.ops.blocked_dense import panel_update_shapes
+
+    phase("19. dense KKT backends on a batch: batched-512 under seven backends, "
+          "the n = 500 batch, 4 x random_qp(2000, 1000) blocked")
+    t_phase = time.perf_counter()
+    options = dict(BATCHED_OPTIONS, step_rule=mt.AdaptiveStep(0.995),
+                   regularization=mt.FixedRegularization(1e-8, -1e-8))
+    n1 = n8 = n2 = 0
+    per_w = len(panel_update_shapes(BACKEND_PANEL_ORDER))
+    for name, batch in ref["batched_backends"].items():
+        t0 = time.perf_counter()
+        qps = [getattr(mt, batch["generator"])(seed=s, **batch["kwargs"])
+               for s in batch["seeds"]]
+        built = time.perf_counter() - t0
+        for run, want in batch["runs"].items():
+            solver = mt.BatchedMPCSolver.from_problems(qps, device="cuda", **options,
+                                                       **want["options"])
+            reset_counts(k1, k8)
+            t0 = time.perf_counter()
+            stats = solver.solve_all()
+            secs = time.perf_counter() - t0
+            c1, c8, c2 = k1.cholesky_lower.launches, k8.syrk_update.launches, k2_launches()
+            routes = dict(k1.cholesky_lower.routes)
+            n1, n8, n2 = n1 + c1, n8 + c8, n2 + c2
+            print(f"  {name} {run}: {len(qps)} lanes, solve {secs:.3f} s (problems built "
+                  f"in {built:.3f} s); launches K1 {c1} {routes}, K8 {c8}, K2-batched {c2}",
+                  flush=True)
+            check_lanes(stats, want, f"{name} {run}")
+            blocked = want["options"].get("linear_solver") == "blocked"
+            k2sys = want["options"].get("kkt_system", "condensed") != "condensed"
+            pallas = want["options"].get("linear_solver") == "pallas"
+            check((c1 > 0) == pallas, f"{name} {run}: K1 launched {c1} times")
+            if blocked and k2sys:
+                check(c2 > 0 and c8 == 0, f"{name} {run}: K2 {c2}, K8 {c8}")
+                if name == "n500x4":
+                    check(c2 % 7 == 0, f"{name} {run}: {c2} K2 launches, not 7 per trial")
+            elif not blocked:
+                check(c2 == 0 and c8 == 0, f"{name} {run}: K2 {c2}, K8 {c8}")
+            if name == "n2000x4":
+                check(c8 > 0 and c8 % per_w == 0,
+                      f"{name} {run}: {c8} K8 launches, not {per_w} per trial of W")
+    print(f"  runs done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    k8_err, k8_times, k8_sums = backend_k8_check(torch, k8)
+    k2_times = backend_ldl_check(torch, k2)
+    print(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return n1, n8, n2, k8_err, k8_times, k8_sums, k2_times
 
 
 def main():
@@ -2364,20 +2597,21 @@ def main():
     # the largest normal matrix phase 15 factors (rows after presolve)
     normal_m = max(rec["m"] for rec in ref["host_xlarge"].values())
     k8_err, k8_times = syrk_phase(torch, k8, normal_m)
-    k8_launches, k8_fact = blocked_phase(torch, mt, k1, k8, ref)
-    variants_phase(mt, k1, k8, ref)
+    k8_launches, k8_fact, blocked_ldl = blocked_phase(torch, mt, k1, k8, ref)
+    variants_ldl = variants_phase(mt, k1, k8, ref)
     kb_err, kl_err, kb_times = batched_kernel_phase(torch, k1)
     kb_launches, kl_launches = batched_path_phase(torch, mt, k1, k8, ref)
     layer_phase(torch, mt, k1, k8, ref)
     ts_single, ts_batched = two_stage_phase(torch, mt, k1, k8, ref)
     pipe_launches = pipeline_phase(mt, k1, k8, ref, smi)
     host_phase(torch, mt, k1, k8, ref, smi)
-    sparse_launches = sparse_phase(torch, mt, k1, k8, ref, smi)
+    sparse_launches, sparse_ldl = sparse_phase(torch, mt, k1, k8, ref, smi)
     sn_batched, sn_lanes, sn_ldl, _, _ = supernodal_phase(torch, mt, k1, k8, ref, smi)
     k2_err, k2_times = ldl_kernel_phase(torch, k2)
     qp_ldl, qp_batched, qp_lanes, _ = sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi,
                                                       args.save_fronts)
     sb_batched, sb_ldl = sparse_batch_phase(torch, mt, k1, k8, k2, ref, smi)
+    bk_k1, bk_k8, bk_ldl, *_ = backends_phase(torch, mt, k1, k8, k2, ref)
 
     t600 = k1_times[("float32", 600)]
     t8 = k8_times[("float32", (3840, 1792, 256))]
@@ -2402,7 +2636,7 @@ def main():
         "route": "cuda",
         "source": "madqp_tpu_torch/csrc/syrk.cu",
         "replaces": "benchmarks/exp_pallas_rl_chol.py:120",
-        "launches": k8_launches + sparse_launches,
+        "launches": k8_launches + sparse_launches + bk_k8,
         "max_abs_err": k8_err,
         "ms": t8["kernel"],
         "plain_ms": t8["plain"],
@@ -2414,7 +2648,7 @@ def main():
         "route": "cuda",
         "source": "madqp_tpu_torch/csrc/cholesky_batched.cu",
         "replaces": "madqp_tpu/ops/pallas_chol.py:158",
-        "launches": kb_launches + ts_batched + sn_batched + qp_batched + sb_batched,
+        "launches": kb_launches + ts_batched + sn_batched + qp_batched + sb_batched + bk_k1,
         "max_abs_err": kb_err,
         "ms": tb["kernel"],
         "plain_ms": tb["plain"],
@@ -2438,7 +2672,8 @@ def main():
         "route": "cuda",
         "source": "madqp_tpu_torch/csrc/ldl_batched.cu",
         "replaces": "madqp_tpu/ops/blocked_dense.py:37 via madqp_tpu/ops/sparse_chol.py:1306",
-        "launches": sn_ldl + qp_ldl + sb_ldl,
+        "launches": (blocked_ldl + variants_ldl + sparse_ldl + sn_ldl + qp_ldl + sb_ldl
+                     + bk_ldl),
         "max_abs_err": k2_err,
         "ms": t2["kernel"],
         "plain_ms": t2["plain"],

@@ -12,6 +12,15 @@
 // S[c1:, c1:] -= Z Z[:w - c1]^T and the cross-stripe update of the trailing
 // square, both as views of the matrix being factored, in place.
 //
+// A lane axis: a stack of `lanes` such updates of one shape, lane l's C, B
+// and out starting l * sc, l * sb, l * so elements after lane 0's (64-bit
+// strides: one lane of a 2560^2 float64 stripe is 52 MB), is one launch
+// with blockIdx.y the lane.  Each lane runs the tiles, their order and the
+// mirror of a 2-D update; a 2-D update is the stack of one (strides 0).
+// The batched KKT's panel_chol (the lane path of ops/blocked_dense.py)
+// issues each trailing update once for all lanes this way, what the TPU
+// kernel under jax.vmap does with a batch grid dimension.
+//
 // What bounds it: the function needs c (c + 1) k + 2 (r - c) c k operations
 // (the top c x c block of B B[:c]^T is symmetric) against (2 r c + r k)
 // elements of traffic.  At (3840, 1792, 256) that is 2.70 GFLOP against
@@ -69,12 +78,15 @@ constexpr int smem_bytes() {
 // block in row-major order, then the full tile rows below it.
 template <typename T>
 __global__ void __launch_bounds__(Tile<T>::THREADS, Tile<T>::MIN_CTAS)
-madqp_syrk_kernel(const T* C, int ldc, const T* __restrict__ B, int ldb,
-                  T* out, int ldo, int r, int c, int k) {
+madqp_syrk_kernel(const T* C, int ldc, long long sc, const T* __restrict__ B, int ldb,
+                  long long sb, T* out, int ldo, long long so, int r, int c, int k) {
   using TC = Tile<T>;
   constexpr int BM = TC::BM;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
+  C += (size_t)blockIdx.y * sc;
+  B += (size_t)blockIdx.y * sb;
+  out += (size_t)blockIdx.y * so;
 
   const int tc = (c + BM - 1) / BM;
   const int ntri = tc * (tc + 1) / 2;
@@ -115,9 +127,11 @@ madqp_syrk_kernel(const T* C, int ldc, const T* __restrict__ B, int ldb,
 }
 
 template <typename T>
-int syrk_update(const T* C, int ldc, const T* B, int ldb, T* out, int ldo,
-                int r, int c, int k, cudaStream_t stream) {
-  if (r <= 0 || c <= 0) return 0;
+int syrk_update(const T* C, int ldc, long long sc, const T* B, int ldb, long long sb,
+                T* out, int ldo, long long so, int r, int c, int k, int lanes,
+                cudaStream_t stream) {
+  if (r <= 0 || c <= 0 || lanes <= 0) return 0;
+  if (lanes > 65535) return (int)cudaErrorInvalidConfiguration;
   constexpr int BM = Tile<T>::BM;
   constexpr int smem = smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -126,28 +140,30 @@ int syrk_update(const T* C, int ldc, const T* B, int ldb, T* out, int ldo,
   const long long tc = (c + BM - 1) / BM;
   const long long tr = (r + BM - 1) / BM;
   const long long tiles = tc * (tc + 1) / 2 + (tr - tc) * tc;
-  madqp_syrk_kernel<T><<<(unsigned)tiles, Tile<T>::THREADS, smem, stream>>>(
-      C, ldc, B, ldb, out, ldo, r, c, k);
+  madqp_syrk_kernel<T><<<dim3((unsigned)tiles, (unsigned)lanes), Tile<T>::THREADS, smem,
+                         stream>>>(C, ldc, sc, B, ldb, sb, out, ldo, so, r, c, k);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int madqp_syrk_update_f32(const void* C, int ldc, const void* B,
-                                     int ldb, void* out, int ldo, int r, int c,
-                                     int k, void* stream) {
-  return syrk_update<float>(static_cast<const float*>(C), ldc,
-                            static_cast<const float*>(B), ldb,
-                            static_cast<float*>(out), ldo, r, c, k,
+extern "C" int madqp_syrk_update_f32(const void* C, int ldc, long long sc, const void* B,
+                                     int ldb, long long sb, void* out, int ldo,
+                                     long long so, int r, int c, int k, int lanes,
+                                     void* stream) {
+  return syrk_update<float>(static_cast<const float*>(C), ldc, sc,
+                            static_cast<const float*>(B), ldb, sb,
+                            static_cast<float*>(out), ldo, so, r, c, k, lanes,
                             static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int madqp_syrk_update_f64(const void* C, int ldc, const void* B,
-                                     int ldb, void* out, int ldo, int r, int c,
-                                     int k, void* stream) {
-  return syrk_update<double>(static_cast<const double*>(C), ldc,
-                             static_cast<const double*>(B), ldb,
-                             static_cast<double*>(out), ldo, r, c, k,
+extern "C" int madqp_syrk_update_f64(const void* C, int ldc, long long sc, const void* B,
+                                     int ldb, long long sb, void* out, int ldo,
+                                     long long so, int r, int c, int k, int lanes,
+                                     void* stream) {
+  return syrk_update<double>(static_cast<const double*>(C), ldc, sc,
+                             static_cast<const double*>(B), ldb, sb,
+                             static_cast<double*>(out), ldo, so, r, c, k, lanes,
                              static_cast<cudaStream_t>(stream));
 }
 

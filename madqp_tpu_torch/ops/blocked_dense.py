@@ -12,7 +12,11 @@ dims w x w):
   * `unblocked_ldl`    - masked rank-1 sweep LDL^T with the optional
     sign-directed pivot floor; the base case.
   * `blocked_ldl`      - recursive block LDL^T (`panel_ldl` for 2-D inputs
-    of order >= 1024).
+    of order >= 1024); on a CUDA tensor `ldl_blocks`.
+  * `ldl_blocks`       - the card's signed LDL^T of any leading dims: one
+    K2-batched launch (`ldl_batched.ldl_lower_batched`) per 128-wide
+    diagonal block of the whole stack, the panel and trailing update as
+    batched products.
   * `blocked_cholesky` - SPD Cholesky via blocked_ldl (L_chol = L sqrt(d)),
     or `panel_chol` for large 2-D inputs.
   * `inv_unit_lower` / `inv_lower` - blocked triangular inversion.
@@ -24,6 +28,21 @@ dims w x w):
   * `factor_inv_chol` / `chol_explicit_inverse` - factor plus the explicit
     inverse factor (or inverse) used by `linear_solver="blocked"`.
 
+The lane path.  Under `jax.vmap` the JAX package sees one 2-D lane, so a
+batch of order >= 1024 takes the panel forms, while a plain 3-D call (the
+supernodal fronts) takes the recursion.  Here the batched KKT asks for the
+panel forms explicitly with `lanes=True` (`blocked_ldl`, `inv_unit_lower`,
+`factor_inv_chol`, `chol_explicit_inverse`); the panel forms themselves
+take a (L, n, n) stack as they take one matrix, and `panel_chol` issues
+each of its K8 updates once for all lanes (K8's lane axis), so a trial
+launches `panel_update_shapes` whatever the lane count.  A 3-D call
+without `lanes` keeps the recursion.
+
+On a CUDA tensor `blocked_ldl` is `ldl_blocks` and `inv_unit_lower` one
+triangular solve against the identity, whatever the order and leading
+dims (no Python sweep over columns or rows); the CPU keeps the JAX
+package's algorithms, so the CPU comparisons follow them.
+
 Contract (the solver's factor_ok tests read it): a matrix that is not SPD
 gives NaN or a non-positive value on the Cholesky diagonal, and a wrong
 or non-finite pivot in the LDL^T forms; nothing raises.  Masks select with
@@ -33,8 +52,12 @@ out.  Every constant is created in the working dtype.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from .ldl_batched import MAX_N as LDL_BLOCK
+from .ldl_batched import ldl_lower_batched
 from .syrk import syrk_update
 
 BLK = 32
@@ -63,14 +86,14 @@ def _lib_cholesky(M: torch.Tensor) -> torch.Tensor:
 
 
 def _pad_identity(F: torch.Tensor, npad: int) -> torch.Tensor:
-    """Pad a 2-D (n, n) matrix to (npad, npad) with an identity tail."""
+    """Pad (..., n, n) matrices to (..., npad, npad) with an identity tail."""
     n = F.shape[-1]
     if npad == n:
         return F
-    P = torch.zeros((npad, npad), dtype=F.dtype, device=F.device)
-    P[:n, :n] = F
+    P = F.new_zeros(F.shape[:-2] + (npad, npad))
+    P[..., :n, :n] = F
     idx = torch.arange(n, npad, device=F.device)
-    P[idx, idx] = 1.0
+    P[..., idx, idx] = 1.0
     return P
 
 
@@ -100,13 +123,17 @@ def unblocked_ldl(F, sgn=None, floor: float = 0.0):
     return L + _eye(w, F), d
 
 
-def inv_unit_lower(L, blk: int = BLK):
+def inv_unit_lower(L, blk: int = BLK, lanes: bool = False):
     """Explicit inverse of a batched UNIT lower-triangular (..., w, w):
     blocked 2x2 recursion - inv([[A,0],[B,C]]) = [[iA,0],[-iC B iA, iC]] -
-    with a sequential row-sweep base case.  Large 2-D inputs dispatch to
-    the right-looking panel_inv_unit_lower."""
+    with a sequential row-sweep base case.  Large 2-D inputs (or a stack
+    with `lanes`) dispatch to the right-looking panel_inv_unit_lower.  A
+    CUDA tensor takes one triangular solve against the identity."""
     w = L.shape[-1]
-    if L.dim() == 2 and w >= _PANEL_MIN:
+    if L.device.type == "cuda":
+        return torch.linalg.solve_triangular(L, _eye(w, L).expand(L.shape), upper=False,
+                                             unitriangular=True)
+    if (L.dim() == 2 or lanes) and w >= _PANEL_MIN:
         return panel_inv_unit_lower(L)
     if w > blk:
         h = blk * (((w + 1) // 2 + blk - 1) // blk)  # split at a blk multiple
@@ -141,11 +168,12 @@ def inv_lower(L, unit: bool = False, blk: int = BLK):
 
 
 def _chol_block(D):
-    """Cholesky + explicit inverse of one (w, w) SPD panel through the
+    """Cholesky + explicit inverse of (..., w, w) SPD panels through the
     library factorization and triangular solve (the JAX package uses XLA's
     here); a non-SPD panel gives a NaN diagonal in both."""
     Lp = _lib_cholesky(D)
-    iLp = torch.linalg.solve_triangular(Lp, _eye(D.shape[-1], D), upper=False)
+    iLp = torch.linalg.solve_triangular(Lp, _eye(D.shape[-1], D).expand(D.shape),
+                                        upper=False)
     return Lp, iLp
 
 
@@ -155,8 +183,9 @@ def _stripes(npad: int, outer: int):
 
 
 def panel_chol(F, panel: int = PANEL, outer: int = OUTER):
-    """Two-level right-looking Cholesky for LARGE (n, n) SPD matrices:
-    returns the lower NON-unit factor L with F = L L'.
+    """Two-level right-looking Cholesky for LARGE (n, n) SPD matrices, or
+    a stack (L, n, n) of them (the lane path): returns the lower NON-unit
+    factor L with F = L L'.
 
     Level 1: stripes of `outer` columns; after a stripe is factored, one
     K8 update of the trailing square.  Level 2: `panel`-column steps
@@ -171,7 +200,8 @@ def panel_chol(F, panel: int = PANEL, outer: int = OUTER):
     in place on views of one working copy of the (padded) matrix: no
     stripe or trailing square is copied.  The last panel of a stripe
     leaves nothing to update and launches nothing; `panel_update_shapes`
-    lists the launches.
+    lists the launches, for one matrix and for a stack alike (each a
+    stacked K8 launch).
 
     NaN from a non-SPD input propagates through the panel Cholesky and is
     caught by the caller's factor_ok check."""
@@ -180,22 +210,22 @@ def panel_chol(F, panel: int = PANEL, outer: int = OUTER):
     T = _pad_identity(F, npad)
     if T is F:
         T = F.clone()  # the updates below work in place
-    L = torch.zeros((npad, npad), dtype=F.dtype, device=F.device)
+    L = F.new_zeros(F.shape[:-2] + (npad, npad))
     for j0, w in _stripes(npad, outer):
-        S = T[:, :w]                 # the (h, w) stripe, h = npad - j0
-        Lst = L[j0:, j0:j0 + w]      # its factor block-column
+        S = T[..., :, :w]                 # the (h, w) stripe, h = npad - j0
+        Lst = L[..., j0:, j0:j0 + w]      # its factor block-column
         for c0 in range(0, w, panel):
             c1 = c0 + panel
-            Lp, iLp = _chol_block(S[c0:c1, c0:c1])
-            Z = S[c1:, c0:c1] @ iLp.T
+            Lp, iLp = _chol_block(S[..., c0:c1, c0:c1])
+            Z = S[..., c1:, c0:c1] @ iLp.mT
             if c1 < w:
-                syrk_update(S[c1:, c1:], Z, out=S[c1:, c1:])
-            Lst[c1:, c0:c1] = Z
-            Lst[c0:c1, c0:c1] = Lp
-        if T.shape[0] > w:
-            syrk_update(T[w:, w:], Lst[w:], out=T[w:, w:])
-            T = T[w:, w:]
-    return L[:n, :n]
+                syrk_update(S[..., c1:, c1:], Z, out=S[..., c1:, c1:])
+            Lst[..., c1:, c0:c1] = Z
+            Lst[..., c0:c1, c0:c1] = Lp
+        if T.shape[-2] > w:
+            syrk_update(T[..., w:, w:], Lst[..., w:, :], out=T[..., w:, w:])
+            T = T[..., w:, w:]
+    return L[..., :n, :n]
 
 
 def panel_update_shapes(n: int, panel: int = PANEL, outer: int = OUTER):
@@ -215,29 +245,32 @@ def panel_update_shapes(n: int, panel: int = PANEL, outer: int = OUTER):
 
 def panel_inv_lower(L, unit: bool = False, panel: int = PANEL):
     """Explicit inverse of a LARGE (n, n) lower-triangular L (unit or
-    not): block forward solve L X = I with library triangular-solve panel
-    bases and one masked rank-panel GEMM per step."""
+    not), or of a stack (L, n, n) of them: block forward solve L X = I
+    with library triangular-solve panel bases and one masked rank-panel
+    GEMM per step."""
     n = L.shape[-1]
     npad = -(-n // panel) * panel
     L = _pad_identity(L, npad)
     rows = torch.arange(npad, device=L.device)
-    eye = _eye(panel, L)
+    eye = _eye(panel, L).expand(L.shape[:-2] + (panel, panel))
     zero = _zero(L)
-    X = _eye(npad, L)
+    X = _eye(npad, L).expand(L.shape)
     for j0 in range(0, npad, panel):
-        L11 = L[j0:j0 + panel, j0:j0 + panel]
+        L11 = L[..., j0:j0 + panel, j0:j0 + panel]
         i11 = torch.linalg.solve_triangular(L11, eye, upper=False,
                                             unitriangular=unit)
-        Xk = i11 @ X[j0:j0 + panel, :]
+        Xk = i11 @ X[..., j0:j0 + panel, :]
         colLm = torch.where((rows >= j0 + panel)[:, None],
-                            L[:, j0:j0 + panel], zero)
+                            L[..., :, j0:j0 + panel], zero)
         X = X - colLm @ Xk
-        X[j0:j0 + panel, :] = Xk
-    return X[:n, :n]
+        X[..., j0:j0 + panel, :] = Xk
+    return X[..., :n, :n]
 
 
-def factor_inv_chol(Ms):
-    """Factor an SPD (n, n) matrix and invert the CHOLESKY FACTOR:
+def factor_inv_chol(Ms, lanes: bool = False):
+    """Factor an SPD (n, n) matrix (or, with `lanes`, each of a stack
+    (L, n, n), as `jax.vmap` of the JAX function does) and invert the
+    CHOLESKY FACTOR:
     returns (L_chol, iL) with iL = L_chol^-1, so Ms^-1 r = iL' (iL r) is
     two matvecs.  The full inverse iL'iL is deliberately not formed.  A
     non-SPD input yields NaN or a non-positive value in L_chol's diagonal
@@ -248,7 +281,7 @@ def factor_inv_chol(Ms):
     library Cholesky + triangular solve; float64 the GEMM-rich LDL
     recursion."""
     n = Ms.shape[-1]
-    if Ms.dim() == 2 and n >= _PANEL_MIN:
+    if (Ms.dim() == 2 or lanes) and n >= _PANEL_MIN:
         L = panel_chol(Ms)
         return L, panel_inv_lower(L)
     if Ms.dtype == torch.float32:
@@ -261,48 +294,51 @@ def factor_inv_chol(Ms):
     return Lu * sq[..., None, :], i11 / sq[..., :, None]
 
 
-def chol_explicit_inverse(Ms):
-    """Factor an SPD (n, n) matrix and form its explicit inverse:
-    returns (L_chol, Ms_inv).  Prefer factor_inv_chol unless the full
-    inverse matrix itself is needed."""
-    L, iL = factor_inv_chol(Ms)
-    return L, iL.T @ iL
+def chol_explicit_inverse(Ms, lanes: bool = False):
+    """Factor an SPD (n, n) matrix (or each of a stack, with `lanes`) and
+    form its explicit inverse: returns (L_chol, Ms_inv).  Prefer
+    factor_inv_chol unless the full inverse matrix itself is needed."""
+    L, iL = factor_inv_chol(Ms, lanes)
+    return L, iL.mT @ iL
 
 
 def panel_ldl(F, sgn=None, floor: float = 0.0, panel: int = PANEL):
-    """Right-looking no-pivot LDL^T for LARGE (n, n) matrices: a loop over
-    n/panel column panels - the panel factorizes via the recursive blocked
-    base and the trailing update is one full-width masked rank-panel GEMM
-    per step (scaled by the signed pivots, so not a K8 update)."""
+    """Right-looking no-pivot LDL^T for LARGE (n, n) matrices, or a stack
+    (L, n, n) of them with signs (L, n): a loop over n/panel column
+    panels - the panel factorizes via the blocked base and the trailing
+    update is one full-width masked rank-panel GEMM per step (scaled by
+    the signed pivots, so not a K8 update)."""
     n = F.shape[-1]
     npad = -(-n // panel) * panel
     dtype, device = F.dtype, F.device
+    lead = F.shape[:-2]
     F = _pad_identity(F, npad)
     use_floor = sgn is not None and floor > 0.0
     if use_floor:
-        sgn_arr = torch.cat([torch.as_tensor(sgn, dtype=dtype, device=device),
-                             torch.ones(npad - n, dtype=dtype, device=device)])
+        sgn = torch.as_tensor(sgn, dtype=dtype, device=device)
+        sgn_arr = torch.cat([sgn, torch.ones(sgn.shape[:-1] + (npad - n,), dtype=dtype,
+                                             device=device)], dim=-1)
     rows = torch.arange(npad, device=device)
-    eye = _eye(panel, F)
+    eye = _eye(panel, F).expand(lead + (panel, panel))
     zero = _zero(F)
     W = F
-    L = torch.zeros((npad, npad), dtype=dtype, device=device)
-    d = torch.ones((npad,), dtype=dtype, device=device)
+    L = torch.zeros(lead + (npad, npad), dtype=dtype, device=device)
+    d = torch.ones(lead + (npad,), dtype=dtype, device=device)
     for j0 in range(0, npad, panel):
-        D11 = W[j0:j0 + panel, j0:j0 + panel]
+        D11 = W[..., j0:j0 + panel, j0:j0 + panel]
         L11, d1 = blocked_ldl(
-            D11, sgn=sgn_arr[j0:j0 + panel] if use_floor else None,
+            D11, sgn=sgn_arr[..., j0:j0 + panel] if use_floor else None,
             floor=floor)
         i11 = torch.linalg.solve_triangular(L11, eye, upper=False,
                                             unitriangular=True)
-        Z = W[:, j0:j0 + panel] @ i11.T
+        Z = W[..., :, j0:j0 + panel] @ i11.mT
         Zm = torch.where((rows >= j0 + panel)[:, None], Z, zero)
-        L21 = Zm / d1[None, :]
-        W = W - Zm @ L21.T
-        L[:, j0:j0 + panel] = L21
-        L[j0:j0 + panel, j0:j0 + panel] = L11
-        d[j0:j0 + panel] = d1
-    return L[:n, :n], d[:n]
+        L21 = Zm / d1[..., None, :]
+        W = W - Zm @ L21.mT
+        L[..., :, j0:j0 + panel] = L21
+        L[..., j0:j0 + panel, j0:j0 + panel] = L11
+        d[..., j0:j0 + panel] = d1
+    return L[..., :n, :n], d[..., :n]
 
 
 def panel_inv_unit_lower(L, panel: int = PANEL):
@@ -310,13 +346,56 @@ def panel_inv_unit_lower(L, panel: int = PANEL):
     return panel_inv_lower(L, unit=True, panel=panel)
 
 
-def blocked_ldl(F, sgn=None, floor: float = 0.0, blk: int = BLK):
+def ldl_blocks(F, sgn=None, floor: float = 0.0):
+    """The card's no-pivot signed LDL^T of (..., n, n) (any leading dims),
+    with the optional sign-directed pivot floor: returns (L, d) as
+    `blocked_ldl` does.  Order <= LDL_BLOCK (128, K2-batched's largest):
+    one K2-batched launch (`ldl_lower_batched`) for the whole stack.
+    Above: a right-looking loop over 128-wide block columns, each diagonal
+    block one K2-batched launch for the stack, L11^-1 one triangular solve
+    against the identity, Z = F21 L11^-T, L21 = Z / d1 and the trailing
+    update F22 - Z L21^T batched products.  On a CPU tensor the base is
+    K2-batched's plain version, so the CPU tests can hold this route
+    against the JAX recursion."""
+    lead, n = F.shape[:-2], F.shape[-1]
+    A = F.reshape((math.prod(lead), n, n))
+    s = None
+    if sgn is not None and floor > 0.0:
+        s = torch.as_tensor(sgn, dtype=F.dtype, device=F.device).expand(lead + (n,))
+        s = s.reshape(A.shape[:-1])
+    if n <= LDL_BLOCK:
+        L, d = ldl_lower_batched(A, s, floor)
+        return L.reshape(F.shape), d.reshape(lead + (n,))
+    A = A.clone()   # the trailing updates below work in place
+    L = torch.zeros_like(A)
+    d = A.new_empty(A.shape[:-1])
+    for c0 in range(0, n, LDL_BLOCK):
+        c1 = min(c0 + LDL_BLOCK, n)
+        L11, d1 = ldl_lower_batched(A[:, c0:c1, c0:c1],
+                                    None if s is None else s[:, c0:c1], floor)
+        L[:, c0:c1, c0:c1] = L11
+        d[:, c0:c1] = d1
+        if c1 == n:
+            break
+        i11 = torch.linalg.solve_triangular(L11, _eye(c1 - c0, A).expand(L11.shape),
+                                            upper=False, unitriangular=True)
+        Z = A[:, c1:, c0:c1] @ i11.mT
+        L21 = Z / d1[:, None, :]
+        A[:, c1:, c1:] -= Z @ L21.mT
+        L[:, c1:, c0:c1] = L21
+    return L.reshape(F.shape), d.reshape(lead + (n,))
+
+
+def blocked_ldl(F, sgn=None, floor: float = 0.0, blk: int = BLK, lanes: bool = False):
     """Blocked no-pivot LDL^T of (..., w, w): same result as
     unblocked_ldl, but panel solves and trailing updates are GEMMs and
-    only blk-column base sweeps stay sequential.  Large 2-D inputs
-    dispatch to the right-looking panel_ldl."""
+    only blk-column base sweeps stay sequential.  Large 2-D inputs (or a
+    stack with `lanes`) dispatch to the right-looking panel_ldl.  A CUDA
+    tensor of any order and leading dims takes `ldl_blocks`."""
     w = F.shape[-1]
-    if F.dim() == 2 and w >= _PANEL_MIN:
+    if F.device.type == "cuda":
+        return ldl_blocks(F, sgn=sgn, floor=floor)
+    if (F.dim() == 2 or lanes) and w >= _PANEL_MIN:
         return panel_ldl(F, sgn=sgn, floor=floor)
     if w <= blk:
         return unblocked_ldl(F, sgn=sgn, floor=floor)

@@ -39,10 +39,11 @@ the augmented K2 system of `solver/sparse_qp.py` on the signed supernodal
 LDLᵀ; `make_kkt` lists them among the valid names.
 
 A batch of problems (leading lane axis on every tensor: `prob.A` (B, m, n),
-`pr_diag` (B, n), `del_c` (B,)) factors through the condensed and normal
-systems with the `dense` and `pallas` backends, one factor per lane and a
-per-lane `factor_ok`; the batched MPC kernel (`solver/mpc.py`) refuses the
-other backends.
+`pr_diag` (B, n), `del_c` (B,)) factors through every dense system and
+backend, one factor per lane and a per-lane `factor_ok`, as `jax.vmap` of
+the JAX package's does: a blocked factor of order >= 1024 takes the lane
+path of `ops/blocked_dense.py` (the panel forms, K8 once for all lanes),
+which `jax.vmap` reaches because it sees one 2-D lane.
 """
 
 from __future__ import annotations
@@ -130,27 +131,31 @@ class DenseCondensedKKT:
         non-positive value on the factor's diagonal, which factor_ok reads.
         Returns (chol_like_factor_for_factor_ok, iL, scale)."""
         Ms, scale = self._scaled(M)
-        Lc, iL = factor_inv_chol(Ms)
+        Lc, iL = factor_inv_chol(Ms, lanes=True)
         return Lc, iL, scale
 
     @staticmethod
     def _iL_apply(iL, scale, r, out_dtype):
         """M^-1 r = D (iL' (iL (D r))) with D = diag(scale); works for a
-        vector or a matrix r (columns are independent solves)."""
-        rs = scale[:, None] * r if r.dim() == 2 else scale * r
-        y = (iL.T @ (iL @ rs.to(iL.dtype))).to(out_dtype)
-        return scale[:, None] * y if r.dim() == 2 else scale * y
+        vector or a matrix r (columns are independent solves), each with a
+        leading lane axis in a batch."""
+        if r.dim() > scale.dim():   # columns
+            rs = (scale[..., :, None] * r).to(iL.dtype)
+            return scale[..., :, None] * (iL.mT @ (iL @ rs)).to(out_dtype)
+        rs = (scale * r).to(iL.dtype)
+        return scale * matvec(iL.mT, matvec(iL, rs)).to(out_dtype)
 
     def _factorize_blocked(self, prob, pr_diag, del_c):
         H, A = prob.H, prob.A
-        m = A.shape[0]
+        m = A.shape[-2]
         if H is None:
             chol_W, W_iL, w_scale = None, None, None
-            Winv_AT = A.T / pr_diag[:, None]
+            Winv_AT = A.mT / pr_diag[..., :, None]
         else:
-            chol_W, W_iL, w_scale = self._blocked_inv(H + torch.diag(pr_diag))
-            Winv_AT = self._iL_apply(W_iL, w_scale, A.T, A.dtype)
-        S = A @ Winv_AT - del_c * torch.eye(m, dtype=A.dtype, device=A.device)
+            chol_W, W_iL, w_scale = self._blocked_inv(H + torch.diag_embed(pr_diag))
+            Winv_AT = self._iL_apply(W_iL, w_scale, A.mT, A.dtype)
+        S = A @ Winv_AT - del_c[..., None, None] * torch.eye(m, dtype=A.dtype,
+                                                              device=A.device)
         chol_S, S_iL, s_scale = self._blocked_inv(S)
         return CondensedFactors(
             chol_W=chol_W, w_scale=w_scale, w_diag=pr_diag,
@@ -164,9 +169,9 @@ class DenseCondensedKKT:
         M^-1 = D Ms^-1 D with D = diag(scale).  The triangular solves
         against the identity run once per factorization; every backsolve
         after them is one matvec."""
-        eye = torch.eye(chol.shape[0], dtype=chol.dtype, device=chol.device)
-        Ms_inv = torch.cholesky_solve(eye, chol)
-        return (scale[:, None] * Ms_inv.to(scale.dtype)) * scale[None, :]
+        eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device)
+        Ms_inv = torch.cholesky_solve(eye.expand(chol.shape), chol)
+        return (scale[..., :, None] * Ms_inv.to(scale.dtype)) * scale[..., None, :]
 
     def _chol_scaled(self, M):
         """Jacobi-scale M to unit diagonal, factorize (optionally in
@@ -222,14 +227,14 @@ class DenseCondensedKKT:
         if f.W_iL is not None:
             return self._iL_apply(f.W_iL, f.w_scale, r, r.dtype)
         if f.W_inv is not None:
-            return f.W_inv @ r
+            return matvec(f.W_inv, r)
         return self._chol_apply(f.chol_W, f.w_scale, r, r.dtype)
 
     def _S_solve(self, f: CondensedFactors, r):
         if f.S_iL is not None:
             return self._iL_apply(f.S_iL, f.s_scale, r, r.dtype)
         if f.S_inv is not None:
-            return f.S_inv @ r
+            return matvec(f.S_inv, r)
         return self._chol_apply(f.chol_S, f.s_scale, r, r.dtype)
 
     def solve(self, f: CondensedFactors, rx, ry):
@@ -284,6 +289,7 @@ class K2Factors(NamedTuple):
 
 
 class K2BlockedFactors(NamedTuple):
+    # (a batch has a leading lane axis on each)
     iLu: torch.Tensor    # inverse UNIT-LDL factor: K^-1 r = S iLu' D^-1 iLu S r
     d: torch.Tensor      # LDL pivots (inertia check + the D^-1 in solves)
     sgn: torch.Tensor    # expected pivot signs (+1 x n, -1 x m)
@@ -304,6 +310,8 @@ class DenseK2KKT:
     GEMM-rich signed LDL^T (no pivoting: the IPM's regularization keeps the
     matrix quasi-definite) with the inverse unit factor, so backsolves are
     matvecs.  `solve_mode` has no effect here (as in the JAX package).
+    A batch (leading lane axis) factors every lane in one batched LU, or in
+    `blocked_ldl`'s lane path with signs per lane.
     """
 
     name = "k2"
@@ -319,34 +327,30 @@ class DenseK2KKT:
         return K
 
     def _factorize_blocked(self, K, m, scale=None):
-        nm = K.shape[0]
+        nm = K.shape[-1]
         Kf = self._to_fact(K)
         sgn = torch.cat([
             torch.ones(nm - m, dtype=Kf.dtype, device=Kf.device),
-            -torch.ones(m, dtype=Kf.dtype, device=Kf.device)])
+            -torch.ones(m, dtype=Kf.dtype, device=Kf.device)]).expand(Kf.shape[:-1])
         # Static pivot floor in float32 (refinement absorbs it); meaningful
         # only on a ~unit-diagonal matrix, i.e. under K2.5.
         floor = 1e-6 if (self.fact_dtype == torch.float32
                          and scale is not None) else 0.0
-        Lu, d = blocked_ldl(Kf, sgn=sgn, floor=floor)
+        Lu, d = blocked_ldl(Kf, sgn=sgn, floor=floor, lanes=True)
         # Keep the inverse unit factor, not the full K^-1: solves are two
         # matvecs and a diagonal scale.
-        return K2BlockedFactors(iLu=inv_unit_lower(Lu), d=d, sgn=sgn,
+        return K2BlockedFactors(iLu=inv_unit_lower(Lu, lanes=True), d=d, sgn=sgn,
                                 scale=scale)
 
     @staticmethod
     def _assemble(H, A, pr_diag, del_c):
-        n = pr_diag.shape[0]
-        m = A.shape[0]
-        W = torch.diag(pr_diag) if H is None else H + torch.diag(pr_diag)
-        K = torch.zeros((n + m, n + m), dtype=pr_diag.dtype,
-                        device=pr_diag.device)
-        K[:n, :n] = W
-        K[:n, n:] = A.T
-        K[n:, :n] = A
-        K[n:, n:] = del_c * torch.eye(m, dtype=pr_diag.dtype,
-                                      device=pr_diag.device)
-        return K
+        """[W A'; A dc I] of one problem, or of each lane of a batch."""
+        m = A.shape[-2]
+        W = torch.diag_embed(pr_diag) if H is None else H + torch.diag_embed(pr_diag)
+        C = del_c[..., None, None] * torch.eye(m, dtype=pr_diag.dtype,
+                                               device=pr_diag.device)
+        return torch.cat([torch.cat([W, A.mT], dim=-1),
+                          torch.cat([A, C], dim=-1)], dim=-2)
 
     @staticmethod
     def _lu(K):
@@ -358,31 +362,35 @@ class DenseK2KKT:
     def factorize(self, prob, pr_diag, del_c):
         K = self._assemble(prob.H, prob.A, pr_diag, del_c)
         if self.blocked:
-            return self._factorize_blocked(K, prob.A.shape[0])
+            return self._factorize_blocked(K, prob.A.shape[-2])
         lu, piv = self._lu(self._to_fact(K))
         return K2Factors(lu=lu, piv=piv)
 
+    @staticmethod
+    def _lu_solve(f, rhs):
+        return torch.linalg.lu_solve(f.lu, f.piv, rhs.to(f.lu.dtype)[..., None])[..., 0]
+
     def solve(self, f, rx, ry):
-        n = rx.shape[0]
-        rhs = torch.cat([rx, ry])
+        n = rx.shape[-1]
+        rhs = torch.cat([rx, ry], dim=-1)
         if isinstance(f, K2BlockedFactors):
             rs = rhs * f.scale if f.scale is not None else rhs
-            y = f.iLu @ rs.to(f.iLu.dtype)
-            y = f.iLu.T @ (y / f.d)
+            y = matvec(f.iLu, rs.to(f.iLu.dtype))
+            y = matvec(f.iLu.mT, y / f.d)
             d = y.to(rx.dtype)
             if f.scale is not None:
                 d = d * f.scale
-            return d[:n], d[n:]
-        d = torch.linalg.lu_solve(f.lu, f.piv, rhs.to(f.lu.dtype)[:, None])[:, 0]
-        d = d.to(rx.dtype)
-        return d[:n], d[n:]
+            return d[..., :n], d[..., n:]
+        d = self._lu_solve(f, rhs).to(rx.dtype)
+        return d[..., :n], d[..., n:]
 
     def factor_ok(self, f):
+        """A 0-d bool tensor, or one per lane (B,) for a batch."""
         if isinstance(f, K2BlockedFactors):
             # pivot-sign inertia check (quasi-definite: +1 x n, -1 x m)
-            return torch.isfinite(f.d).all() & (f.d * f.sgn > 0.0).all()
-        dU = torch.diagonal(f.lu)
-        return torch.isfinite(dU).all() & (dU.abs() > 0.0).all()
+            return torch.isfinite(f.d).all(-1) & (f.d * f.sgn > 0.0).all(-1)
+        dU = torch.diagonal(f.lu, dim1=-2, dim2=-1)
+        return torch.isfinite(dU).all(-1) & (dU.abs() > 0.0).all(-1)
 
 
 class DenseK25KKT(DenseK2KKT):
@@ -396,22 +404,21 @@ class DenseK25KKT(DenseK2KKT):
 
     def factorize(self, prob, pr_diag, del_c):
         K = self._assemble(prob.H, prob.A, pr_diag, del_c)
-        dK = torch.diagonal(K).abs()
+        dK = torch.diagonal(K, dim1=-2, dim2=-1).abs()
         scale = 1.0 / torch.sqrt(torch.clamp(dK, min=1e-8))
-        Ks = scale[:, None] * K * scale[None, :]
+        Ks = scale[..., :, None] * K * scale[..., None, :]
         if self.blocked:
-            return self._factorize_blocked(Ks, prob.A.shape[0], scale=scale)
+            return self._factorize_blocked(Ks, prob.A.shape[-2], scale=scale)
         lu, piv = self._lu(self._to_fact(Ks))
         return K25Factors(lu=lu, piv=piv, scale=scale)
 
     def solve(self, f, rx, ry):
         if isinstance(f, K2BlockedFactors):
             return DenseK2KKT.solve(self, f, rx, ry)
-        n = rx.shape[0]
-        rhs = (torch.cat([rx, ry]) * f.scale).to(f.lu.dtype)
-        d = torch.linalg.lu_solve(f.lu, f.piv, rhs[:, None])[:, 0]
+        n = rx.shape[-1]
+        d = self._lu_solve(f, torch.cat([rx, ry], dim=-1) * f.scale)
         d = d.to(rx.dtype) * f.scale
-        return d[:n], d[n:]
+        return d[..., :n], d[..., n:]
 
 
 # ---------------------------------------------------------------------------

@@ -34,9 +34,10 @@ products.  The reference computes the same factor as blocked_ldl + sqrt(d)
 (L11 = Lu sqrt(d)).  A front that is not SPD gives NaN on its diagonal,
 which `factor_ok_batched` reports.  The signed LDL^T
 (`factorize_batched_ldl`: the augmented K2 system, and the float32 phases'
-pivot-floored fronts) factors each stack's F11 by K2-batched on the card
-(`ops/ldl_batched.py::ldl_lower_batched`, `csrc/ldl_batched.cu`, one launch
-per stack), by the reference's `blocked_ldl` on the CPU.  `lax.scan` over
+pivot-floored fronts) factors each stack's F11 by `blocked_ldl`: on the
+card K2-batched (`ops/blocked_dense.py::ldl_blocks` over
+`ops/ldl_batched.py::ldl_lower_batched`, `csrc/ldl_batched.cu`, one launch
+per stack), on the CPU the reference's recursion.  `lax.scan` over
 a `_BucketScan`'s rounds or a `_Chain`'s steps is a Python loop here.
 """
 
@@ -50,7 +51,6 @@ import scipy.sparse as sp
 import torch
 
 from .blocked_dense import blocked_ldl, inv_unit_lower
-from .ldl_batched import ldl_lower_batched
 from .pallas_chol import cholesky_lower_routed
 from ..solver.sparse_common import segment_sum
 
@@ -1057,18 +1057,13 @@ def _chol_front(F: torch.Tensor, w_pad: int, inverse: bool):
 def _ldl_front(F: torch.Tensor, w_pad: int, sgn, floor: float, inverse: bool):
     """Signed (pivot-floored with `sgn`) LDL^T of each front's leading
     block: (top, L21, U, d) with top = L11 (or its inverse), Z = F21
-    L11^-T, L21 = Z / d, U = F22 - Z L21^T.  On the card K2-batched
-    factors the stack (`ldl_lower_batched`, one launch) and L11^-1 is one
-    triangular solve against the identity; on the CPU the reference's
-    `blocked_ldl` and `inv_unit_lower`, so the CPU comparisons follow its
-    algorithm."""
-    if F.device.type == "cpu":
-        L11, d = blocked_ldl(F[:, :w_pad, :w_pad], sgn=sgn, floor=floor)
-        i11 = inv_unit_lower(L11)
-    else:
-        L11, d = ldl_lower_batched(F[:, :w_pad, :w_pad], sgn=sgn, floor=floor)
-        i11 = torch.linalg.solve_triangular(L11, _eye(w_pad, L11).expand_as(L11),
-                                            upper=False, unitriangular=True)
+    L11^-T, L21 = Z / d, U = F22 - Z L21^T.  `blocked_ldl` and
+    `inv_unit_lower`: on the card K2-batched factors the stack (one launch
+    up to order 128) and L11^-1 is one triangular solve against the
+    identity; on the CPU the reference's recursions, so the CPU comparisons
+    follow its algorithm."""
+    L11, d = blocked_ldl(F[:, :w_pad, :w_pad], sgn=sgn, floor=floor)
+    i11 = inv_unit_lower(L11)
     top = i11 if inverse else L11
     if F.shape[-1] == w_pad:
         return top, None, None, d

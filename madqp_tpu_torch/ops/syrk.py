@@ -18,7 +18,10 @@ trailing square, each on the block that changes, in place (see
 Both take C (r, c) with c <= r and B (r, k), float32 or float64, each with
 unit column stride and any row stride (views of a larger matrix), and
 return `C - B @ B[:c].T`: in `out` if given (which may be C itself, for an
-update in place), else in a new (r, c) tensor.  Products accumulate in the
+update in place), else in a new (r, c) tensor.  Both also take stacks with
+a leading lane axis, C (L, r, c) and B (L, r, k), each lane a view at any
+lane stride (lane l of `panel_chol`'s lane path is a block of lane l's
+matrix): `C - B @ B[:, :c].mT`, one launch for the whole stack.  Products accumulate in the
 input dtype: unlike the TPU kernel, which rounds every product to float32
 (`preferred_element_type=jnp.float32`) even for float64 inputs, a float64
 update here stays float64 (it serves the float64 rescue).
@@ -37,33 +40,35 @@ from ..utils.roofline import syrk_ops  # noqa: F401  (K8's needed operations)
 SOURCE = _build.CSRC_DIR / "syrk.cu"
 # Output tile edge of the kernel in both dtypes; must equal madqp_syrk_tile().
 TILE = 64
-# (C, ldc, B, ldb, out, ldo, r, c, k, stream) -> cudaError_t
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURE = ([_P, _I, _P, _I, _P, _I, _I, _I, _I, _P], _I)
+# (C, ldc, C's lane stride, B, ldb, B's, out, ldo, out's, r, c, k, lanes,
+# stream) -> cudaError_t
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURE = ([_P, _I, _L, _P, _I, _L, _P, _I, _L, _I, _I, _I, _I, _P], _I)
+MAX_LANES = 65535   # the grid's y extent
 _SIGNATURES = {"madqp_syrk_update_f32": _SIGNATURE,
                "madqp_syrk_update_f64": _SIGNATURE,
                "madqp_syrk_tile": ([], _I)}
 
 
 def _check_strides(name: str, t: torch.Tensor) -> None:
-    rows, cols = t.shape
+    rows, cols = t.shape[-2:]
     if t.numel() == 0:
         return
-    if cols > 1 and t.stride(1) != 1:
+    if cols > 1 and t.stride(-1) != 1:
         raise ValueError(f"syrk_update needs unit column stride, got {name} "
                          f"with strides {t.stride()}")
-    if rows > 1 and t.stride(0) < max(cols, 1):
+    if rows > 1 and t.stride(-2) < max(cols, 1):
         raise ValueError(f"syrk_update needs row stride >= columns, got "
                          f"{name} {tuple(t.shape)} with strides {t.stride()}")
 
 
 def _check(C: torch.Tensor, B: torch.Tensor, out=None) -> None:
-    if C.dim() != 2 or B.dim() != 2:
-        raise ValueError(f"syrk_update needs 2-D C and B, got {tuple(C.shape)} "
-                         f"and {tuple(B.shape)}")
-    r, c = C.shape
-    if B.shape[0] != r or c > r:
-        raise ValueError(f"syrk_update needs C (r, c) with c <= r and B (r, k), "
+    if C.dim() not in (2, 3) or B.dim() != C.dim():
+        raise ValueError(f"syrk_update needs 2-D C and B or two stacks, got "
+                         f"{tuple(C.shape)} and {tuple(B.shape)}")
+    r, c = C.shape[-2:]
+    if B.shape[:-1] != C.shape[:-1] or c > r:
+        raise ValueError(f"syrk_update needs C ([L,] r, c) with c <= r and B ([L,] r, k), "
                          f"got {tuple(C.shape)} and {tuple(B.shape)}")
     if C.dtype not in (torch.float32, torch.float64) or B.dtype != C.dtype:
         raise TypeError(f"syrk_update supports float32/float64 of one dtype, "
@@ -84,9 +89,10 @@ def _check(C: torch.Tensor, B: torch.Tensor, out=None) -> None:
 
 def syrk_update_reference(C: torch.Tensor, B: torch.Tensor,
                           out: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version: C - B @ B[:c].T in torch ops, on any device."""
+    """Plain version: C - B @ B[:c].T (lane by lane on a stack) in torch
+    ops, on any device."""
     _check(C, B, out)
-    res = C - B @ B[:C.shape[1]].T
+    res = C - B @ B[..., :C.shape[-1], :].mT
     if out is None:
         return res
     return out.copy_(res)
@@ -111,14 +117,15 @@ def _library():
 
 def syrk_update(C: torch.Tensor, B: torch.Tensor,
                 out: torch.Tensor | None = None) -> torch.Tensor:
-    """C - B @ B[:c].T for C (r, c), c <= r, and B (r, k), into `out` (C
-    itself for an update in place) or a new tensor.
+    """C - B @ B[:c].T for C (r, c), c <= r, and B (r, k), or lane by lane
+    for stacks C (L, r, c) and B (L, r, k), into `out` (C itself for an
+    update in place) or a new tensor.
 
-    CUDA tensors: launches the hand-written kernel on the current stream
-    (raises if it cannot be built or launched, or if an argument has a
-    column stride other than 1; nothing is copied).  `out` must be C or
-    overlap neither C nor B.  CPU tensors: the plain version.  Any other
-    device raises."""
+    CUDA tensors: launches the hand-written kernel on the current stream,
+    once for a whole stack (raises if it cannot be built or launched, or if
+    an argument has a column stride other than 1; nothing is copied).
+    `out` must be C or overlap neither C nor B.  CPU tensors: the plain
+    version.  Any other device raises."""
     _check(C, B, out)
     if C.device.type == "cpu":
         return syrk_update_reference(C, B, out)
@@ -128,14 +135,24 @@ def syrk_update(C: torch.Tensor, B: torch.Tensor,
         out = torch.empty(C.shape, dtype=C.dtype, device=C.device)
     if out.numel() == 0:
         return out
+    stack = C.dim() == 3
+    lanes = C.shape[0] if stack else 1
+    if lanes > MAX_LANES:
+        raise ValueError(f"syrk_update: {lanes} lanes, at most {MAX_LANES}")
+
+    def lane_stride(t):
+        return t.stride(0) if stack else 0
+
     lib = _library()
     fn = (lib.madqp_syrk_update_f32 if C.dtype == torch.float32
           else lib.madqp_syrk_update_f64)
-    r, c = C.shape
+    r, c = C.shape[-2:]
     with torch.cuda.device(C.device):
         stream = torch.cuda.current_stream(C.device).cuda_stream
-        err = fn(C.data_ptr(), C.stride(0), B.data_ptr(), B.stride(0),
-                 out.data_ptr(), out.stride(0), r, c, B.shape[1], stream)
+        err = fn(C.data_ptr(), C.stride(-2), lane_stride(C),
+                 B.data_ptr(), B.stride(-2), lane_stride(B),
+                 out.data_ptr(), out.stride(-2), lane_stride(out),
+                 r, c, B.shape[-1], lanes, stream)
     if err != 0:
         raise RuntimeError(f"K8 syrk_update kernel launch failed: CUDA error {err}")
     syrk_update.launches += 1

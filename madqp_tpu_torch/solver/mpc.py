@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import kernels as K
-from ..ops.kkt import DenseCondensedKKT, kkt_mul, make_kkt, torch_dtype
+from ..ops.kkt import kkt_mul, make_kkt, torch_dtype
 from ..utils.options import (
     IPMOptions,
     AdaptiveRegularization,
@@ -61,8 +61,6 @@ _GONDZIO_BETA_MIN = 0.1
 _GONDZIO_BETA_MAX = 10.0
 _GONDZIO_TAU = 0.995
 _GONDZIO_ACCEPT = 1.005   # reference src/solver.jl:241
-# The ROADMAP.md item that brings the remaining KKT backends to a batch.
-BATCH_ITEM = "Queue 1, item 18"
 
 
 def _select(pred, a: K.KKTVec, b: K.KKTVec) -> K.KKTVec:
@@ -542,26 +540,15 @@ class BatchedMPCKernel(MPCKernel):
     (`parallel/batched.py::run_lanes`) freezes the lanes that had stopped
     before the call, as the vmapped `while_loop` does.
 
-    The KKT backends with a batched form are the condensed and normal
-    systems on `dense` and `pallas` (K1 in its one-CTA-per-matrix form) and
-    the two sparse KKTs of a shared pattern (`lane_axis`: the supernodal
-    normal equations and the augmented K2 system, with or without
-    `solve_mode="inverse"`; `parallel/sparse_batched.py`); the other dense
-    backends raise `NotImplementedError` naming ROADMAP.md's item."""
-
-    def __init__(self, opts: IPMOptions, kkt=None):
-        super().__init__(opts, kkt)
-        sparse = getattr(self.kkt, "lane_axis", False)
-        unported = (None if sparse
-                    else f"kkt_system={opts.kkt_system!r}"
-                    if not isinstance(self.kkt, DenseCondensedKKT)
-                    else "linear_solver='blocked'" if opts.linear_solver == "blocked"
-                    else "solve_mode='inverse'" if opts.solve_mode == "inverse"
-                    else None)
-        if unported:
-            raise NotImplementedError(
-                f"{unported} on a batch of problems is not ported yet "
-                f"(ROADMAP.md {BATCH_ITEM})")
+    Every KKT backend of a single solve has a batched form, as under
+    `jax.vmap`: the dense condensed and normal systems on `dense`, `pallas`
+    (K1's batched form) and `blocked` (the lane path of
+    `ops/blocked_dense.py`: K8 with a lane axis from order 1024), each with
+    `solve_mode="inverse"` or not; K2 and K2.5 with a batched LU or the
+    signed blocked LDL^T (K2-batched on the card, signs per lane); and the
+    two sparse KKTs of a shared pattern (`lane_axis`: the supernodal normal
+    equations and the augmented K2 system; `parallel/sparse_batched.py`).
+    Each KKT's `factor_ok` gives one flag per lane."""
 
     def _scalar(self, p, value) -> torch.Tensor:
         return torch.full(p.c.shape[:-1], value, dtype=self.dtype,

@@ -715,3 +715,50 @@ def test_sparse_batch_is_deterministic_on_card(cuda):
         w = kkt.factorize(one, torch.as_tensor(pr[lane]), torch.tensor(-1e-8, dtype=torch.float64))
         for g, p in zip(a[0], w[0]):
             assert float((g[lane].cpu() - p).abs().max()) <= 1e-12 * float(p.abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("lanes,r,c,k", [(1, 300, 200, 40), (4, 2304, 1792, 256),
+                                         (3, 65, 33, 17), (2, 512, 512, 2048)])
+def test_syrk_lane_axis_matches_plain(cuda, lanes, r, c, k, dtype, tol):
+    """A stack of updates, each lane a view into its own larger matrix (as
+    panel_chol's lane path makes them), in place: one launch for the stack,
+    every lane within the 2-D tolerance of the plain version, the rest of
+    each parent matrix unchanged."""
+    rng = np.random.default_rng(lanes + r + c + k)
+    S = torch.as_tensor(rng.standard_normal((lanes, r + 7, c + 9)), dtype=dtype, device=cuda)
+    Z = torch.as_tensor(rng.standard_normal((lanes, r + 7, k + 3)) / np.sqrt(k),
+                        dtype=dtype, device=cuda)
+    C, B = S[:, 7:, 9:], Z[:, 7:, 3:]
+    plain = K8.syrk_update_reference(C, B)
+    S0 = S.clone()
+    before = K8.syrk_update.launches
+    K8.syrk_update(C, B, out=C)
+    torch.cuda.synchronize()
+    assert K8.syrk_update.launches == before + 1
+    assert float((C - plain).abs().max()) <= tol * float(plain.abs().max())
+    S0[:, 7:, 9:] = C
+    assert torch.equal(S, S0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("lanes,n", [(4, 300), (2, 129), (3, 58)])
+def test_ldl_blocks_matches_plain_base(cuda, lanes, n, dtype, tol):
+    """The card's blocked_ldl (one K2-batched launch per 128-wide diagonal
+    block) against the same route on the CPU, whose base is K2-batched's
+    plain version; equal pivot signs."""
+    rng = np.random.default_rng(n)
+    M = rng.standard_normal((lanes, n, n))
+    F = M @ M.transpose(0, 2, 1) / n + np.eye(n)
+    F[:, n // 2:, n // 2:] *= -1.0
+    sgn = np.ones((lanes, n))
+    sgn[:, n // 2:] = -1.0
+    Fc, sc = (torch.as_tensor(a, dtype=dtype, device=cuda) for a in (F, sgn))
+    before = mt.ops.ldl_lower_batched.launches
+    L, d = blocked_dense.blocked_ldl(Fc, sgn=sc, floor=1e-6, lanes=True)
+    torch.cuda.synchronize()
+    assert mt.ops.ldl_lower_batched.launches - before == -(-n // 128)
+    Lp, dp = blocked_dense.ldl_blocks(Fc.cpu(), sgn=sc.cpu(), floor=1e-6)
+    assert float((L.cpu() - Lp).abs().max()) <= tol * float(Lp.abs().max())
+    assert float((d.cpu() - dp).abs().max()) <= tol * float(dp.abs().max())
+    assert torch.equal(torch.sign(d.cpu()), torch.sign(dp))

@@ -59,6 +59,15 @@ the headline options (float32 factorization, one refinement step):
     and options, which chip_smoke.py reads (phase 18), and the JAX batch's
     first wall on the CPU that wrote it (about 13-60 s each, chain_qp's
     about 280 s).
+  * batched_backends: per-lane status / iterations / objective of the
+    batched solver under every dense KKT backend (BACKEND_RUNS' options on
+    top of batched512's), on the batches of BACKEND_BATCHES: the 512
+    dense_dummy_qp(32, 16) lanes under all seven, the n = 500 headline QPs
+    (seeds 0-3) under k2-blocked and condensed-blocked, and four
+    random_qp(2000, 1000) (seeds 0-3) under condensed-blocked, whose W
+    (2500^2) takes the panel Cholesky with K8 (phase 19).  Each batch is
+    stored with its generator, keywords, seeds and runs, and each run with
+    its options and the CPU seconds of the write run.
 The card's machine has no JAX, so the smoke reads them from the file; this
 test regenerates them on the CPU and asserts the committed file still
 holds them.
@@ -518,6 +527,61 @@ def sparse_batched_reference(runs=tuple(SPARSE_BATCHED_RUNS), seeds=range(SPARSE
     return out
 
 
+# Phase 19: every dense KKT backend of a single solve on a batch (extra
+# options on top of batched512's), and the batches it runs them on.
+BACKEND_RUNS = {
+    "condensed-blocked": {"linear_solver": "blocked"},
+    "inverse-dense": {"solve_mode": "inverse", "linear_solver": "dense"},
+    "inverse-pallas": {"solve_mode": "inverse", "linear_solver": "pallas"},
+    "k2": {"kkt_system": "k2"},
+    "k2.5": {"kkt_system": "k2.5"},
+    "k2-blocked": {"kkt_system": "k2", "linear_solver": "blocked"},
+    "k2.5-blocked": {"kkt_system": "k2.5", "linear_solver": "blocked"},
+}
+BACKEND_BATCHES = {
+    "batched512": ("dense_dummy_qp", dict(n=32, m=16), range(BATCH), tuple(BACKEND_RUNS)),
+    "n500x4": ("random_qp", dict(n=500, m=200, ineq=True), range(4),
+               ("k2-blocked", "condensed-blocked")),
+    "n2000x4": ("random_qp", dict(n=2000, m=1000), range(4), ("condensed-blocked",)),
+}
+
+
+def backend_options(pkg, run):
+    """The options of a phase-19 run in the package `pkg`: batched512's
+    with the run's extra ones."""
+    return dict(tol=1e-8, print_level=40, step_rule=pkg.AdaptiveStep(0.995),
+                regularization=pkg.FixedRegularization(1e-8, -1e-8),
+                factorization_dtype="float32", max_refine_steps=1, endgame="f64",
+                **BACKEND_RUNS[run])
+
+
+def batched_backends_reference(batches=tuple(BACKEND_BATCHES), lanes=None, only=None):
+    """Per-lane lists of the reference's batched solve of each batch under
+    each of its runs (only the seeds in `lanes` and the runs in `only`, if
+    given)."""
+    import time
+
+    from madqp_tpu.parallel import BatchedMPCSolver
+
+    out = {}
+    for name in batches:
+        generator, kwargs, seeds, runs = BACKEND_BATCHES[name]
+        seeds = list(seeds if lanes is None else lanes)
+        qps = [getattr(mq, generator)(seed=s, **kwargs) for s in seeds]
+        recs = {}
+        for run in (runs if only is None else only):
+            t0 = time.perf_counter()
+            stats = BatchedMPCSolver.from_problems(qps, **backend_options(mq, run)).solve_all()
+            rows = [_record(st) for st in stats]
+            recs[run] = {"options": BACKEND_RUNS[run],
+                         "cpu_s": time.perf_counter() - t0,
+                         **{key: [r[key] for r in rows]
+                            for key in ("status", "iter", "objective")}}
+        out[name] = {"generator": generator, "kwargs": kwargs, "seeds": seeds,
+                     "runs": recs}
+    return out
+
+
 def generate_reference():
     return {**dense_reference(), "batched512": batched_reference(range(BATCH)),
             "qp_layer64": layer_reference(), "two_stage_1024": two_stage_reference(),
@@ -527,7 +591,8 @@ def generate_reference():
             "supernodal_xlarge": supernodal_xlarge_reference(),
             "augmented_xlarge": augmented_xlarge_reference(),
             "condensed_xlarge": condensed_xlarge_reference(),
-            "sparse_batched": sparse_batched_reference()}
+            "sparse_batched": sparse_batched_reference(),
+            "batched_backends": batched_backends_reference()}
 
 
 def _flatten(ref):
@@ -642,6 +707,31 @@ def test_committed_sparse_batched_matches_jax():
     np.testing.assert_allclose(fresh["objective"], got["objective"][:4], rtol=1e-10)
 
 
+def test_committed_batched_backends_match_jax():
+    """batched_backends: each batch's description and runs are
+    BACKEND_BATCHES' with BACKEND_RUNS' options, every lane solved; two
+    lanes of batched512 under k2.5-blocked (the floored float32 signed
+    LDL^T) recomputed as a batch of their own: status and iterations
+    equal, objective to 1e-10."""
+    committed = json.loads(REF_PATH.read_text())["batched_backends"]
+    assert committed.keys() == BACKEND_BATCHES.keys()
+    for name, (generator, kwargs, seeds, runs) in BACKEND_BATCHES.items():
+        rec = committed[name]
+        assert (rec["generator"], rec["kwargs"], rec["seeds"]) == (generator, kwargs,
+                                                                   list(seeds)), name
+        assert tuple(rec["runs"]) == runs, name
+        for run, r in rec["runs"].items():
+            assert r["options"] == BACKEND_RUNS[run], (name, run)
+            assert r["status"] == [1] * len(seeds), (name, run)
+    lanes = (0, 311)
+    want = batched_backends_reference(("batched512",), lanes, ("k2.5-blocked",))[
+        "batched512"]["runs"]["k2.5-blocked"]
+    got = committed["batched512"]["runs"]["k2.5-blocked"]
+    for j, i in enumerate(lanes):
+        assert got["status"][i] == want["status"][j] and got["iter"][i] == want["iter"][j], i
+        assert got["objective"][i] == pytest.approx(want["objective"][j], rel=1e-10), i
+
+
 if __name__ == "__main__":
     import jax
 
@@ -654,7 +744,8 @@ if __name__ == "__main__":
                   "supernodal_xlarge": supernodal_xlarge_reference,
                   "augmented_xlarge": augmented_xlarge_reference,
                   "condensed_xlarge": condensed_xlarge_reference,
-                  "sparse_batched": sparse_batched_reference}
+                  "sparse_batched": sparse_batched_reference,
+                  "batched_backends": batched_backends_reference}
         ref = json.loads(REF_PATH.read_text())
         ref.update({k: makers[k]() for k in keys})
     else:
