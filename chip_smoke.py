@@ -237,7 +237,17 @@ Phases (each raises on failure, so any failure exits non-zero):
               len(panel_update_shapes(2500)) K8 launches each; and
               K2-batched on BACKEND_LDL_STACKS in float32 and float64, with
               and without the floor, at ldl_batched.TOL with equal pivot
-              signs, timed beside the plain version and the bound.
+              signs, timed beside the plain version and the bound;
+ 20. mesh     the sharded paths (mesh=, torch.distributed) on a one-rank
+              NCCL group (MASTER_ADDR / MASTER_PORT / RANK=0 /
+              WORLD_SIZE=1) under a one-rank DeviceMesh: phase 10's
+              batched-512 with "pallas", phase 12's two_stage_1024 with
+              "pallas" in float64 and phase 18's 16 x banded_sparse_lp(2000,
+              1000) in float64, each bit-equal to its phase's unsharded run
+              (status, iterations and x of every instance: with one rank
+              every gather and sum is a copy), against the same JAX records
+              and with the same K1 launches by route; the group is
+              destroyed at the end.
 Phase 6 also holds and times K8 at every launch shape of the panel
 Cholesky of the largest m that phase 15 factors (blocked_dense.
 panel_update_shapes), in float32 and float64.
@@ -254,7 +264,8 @@ augmented fronts' shape, with the shared tier's occupancy; the launches of K1 in
 17's condensed runs' and phase 18's on its batched tiers, those of
 K1-lanes phase 16's and 17's on the lane axis, those of K2-batched phases
 7, 8, 15 (the card's blocked_ldl: ops/blocked_dense.py::ldl_blocks), 16,
-17, 18 and 19's, those of K8 and K1-batched phase 19's too);
+17, 18 and 19's, those of K8 and K1-batched phase 19's too, those of K1
+and K1-batched phase 20's);
 the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -961,7 +972,9 @@ def check_lanes(stats, want, label, iter_slack=1):
           f"{max(s.iter for s in stats)}")
 
 
-def batched_path_phase(torch, mt, k1, k8, ref):
+def batched_path_phase(torch, mt, k1, k8, ref, unsharded):
+    """Phase 10; keeps the pallas run's stats and K1 routes in
+    unsharded["batched512"] (phase 20 repeats it on a mesh)."""
     phase(f"10. batched: solve_batched on {BATCH} x dense_dummy_qp(32, 16)")
     qps = [mt.dense_dummy_qp(32, 16, seed=i) for i in range(BATCH)]
     options = dict(BATCHED_OPTIONS, step_rule=mt.AdaptiveStep(0.995),
@@ -986,6 +999,7 @@ def batched_path_phase(torch, mt, k1, k8, ref):
               f"iterations; two per factorization trial of the batch); first solve "
               f"{first:.3f} s, warm solve {warm:.3f} s: {BATCH / warm:.1f} instances/s")
         if backend == "pallas":
+            unsharded["batched512"] = (stats, routes)
             check(n % 2 == 0 and n >= 2 * (top + 1), f"batched K1 launched {n} times")
             check(routes == {"warp64": n // 2, "warp16": n // 2},
                   f"batched K1 routes {routes}: W (n = 42) and S (n = 16) once per trial")
@@ -1073,10 +1087,11 @@ def layer_phase(torch, mt, k1, k8, ref):
               f"qp_layer {backend}: K1 launches {k1.cholesky_lower.launches}")
 
 
-def two_stage_phase(torch, mt, k1, k8, ref):
+def two_stage_phase(torch, mt, k1, k8, ref, unsharded):
     """Phase 12: solve_two_stage on the reference's two-stage problem under
     each of its option sets; returns the K1 launches of its pallas solves
-    by source (the persistent kernel's, the batched kernels')."""
+    by source (the persistent kernel's, the batched kernels') and keeps the
+    float64 pallas run's stats and K1 routes in unsharded["two_stage"]."""
     entry = ref["two_stage_1024"]
     spec = entry["problem"]
     phase(f"12. two-stage: solve_two_stage on random_two_stage({spec})")
@@ -1113,6 +1128,8 @@ def two_stage_phase(torch, mt, k1, k8, ref):
         check(x0_err <= 1e-7, f"two-stage {name}: x0 off by {x0_err:.2e}")
         check(norm_rel <= 1e-8, f"two-stage {name}: |x| or |y| off by {norm_rel:.2e}")
         check(k8.syrk_update.launches == 0, f"two-stage {name} launched K8")
+        if name == "pallas":
+            unsharded["two_stage"] = (st, routes)
         if options["linear_solver"] == "pallas":
             # Each factorization trial: U on the CTA tier, S on the warp
             # tier, C00 and S0 on the persistent kernel.
@@ -2233,7 +2250,7 @@ def floored_ldl_check(torch, k2, name, fronts):
     return worst
 
 
-def sparse_batch_phase(torch, mt, k1, k8, k2, ref, smi):
+def sparse_batch_phase(torch, mt, k1, k8, k2, ref, smi, unsharded):
     """Phase 18: solve_sparse_batched on the card.  Per run: every lane's
     status, objective (1e-8 relative) and iterations (equal in float64,
     within MIXED_ITER_BAND with the float32 phase) against the reference's
@@ -2242,7 +2259,8 @@ def sparse_batch_phase(torch, mt, k1, k8, k2, ref, smi):
     the first and last trials held against the kernels' plain versions;
     the float64 LP batches twice, bit-equal, and timed against the serial
     loop of single solves.  Returns (K1 launches of the batched tiers,
-    K2-batched launches)."""
+    K2-batched launches); keeps each run's stats, K1 routes and K2-batched
+    launches in unsharded[run] (phase 20 repeats bandedlp_f64 on a mesh)."""
     from madqp_tpu_torch.ops import blocked_dense as BD
     from madqp_tpu_torch.ops import sparse_chol as SC
     from madqp_tpu_torch.solver import sparse_lp, sparse_qp
@@ -2305,6 +2323,7 @@ def sparse_batch_phase(torch, mt, k1, k8, k2, ref, smi):
             qps = sparse_batch_problems(mt, run)
             mixed = "factorization_dtype" in run["options"]
             res, wall, routes, n2 = batch(run, qps)
+            unsharded[name] = (res, routes, n2)
             n1 = sum(routes.values())
             nb = n1 - routes.get("persistent", 0) - routes.get("single", 0)
             k1_batched, k2_launches = k1_batched + nb, k2_launches + n2
@@ -2568,6 +2587,113 @@ def backends_phase(torch, mt, k1, k8, k2, ref):
     return n1, n8, n2, k8_err, k8_times, k8_sums, k2_times
 
 
+# Phase 20: the sharded paths on a one-rank mesh.  With one rank every
+# gather and sum is a copy, so each run must equal its unsharded phase's
+# bit for bit: status, iterations and x of every instance.
+def same_stats(got, want, label):
+    """Status, iterations and solution of every instance bit-equal."""
+    got, want = (v if isinstance(v, list) else [v] for v in (got, want))
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not (g.status == w.status and g.iter == w.iter
+                   and np.array_equal(g.solution, w.solution))]
+    check(len(got) == len(want) and not bad,
+          f"{label}: {len(bad)} of {len(want)} instances differ from the unsharded run "
+          f"(first {bad[:5]})")
+
+
+def mesh_phase(torch, mt, k1, k8, k2, ref, unsharded):
+    """Phase 20: a one-rank NCCL group and a one-rank DeviceMesh; phase
+    10's batched-512 (pallas), phase 12's two_stage_1024 (pallas, float64)
+    and phase 18's 16 x banded_sparse_lp(2000, 1000) (float64) through
+    mesh=: each bit-equal to its phase's unsharded run, against its JAX
+    record as that phase holds it, with that phase's K1 launches by route.
+    Returns the K1 launches (single matrix, batched tiers) and K2-batched's."""
+    import datetime
+    import os
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    phase("20. one-rank mesh: batched-512, two_stage_1024 and the sparse batch through "
+          "mesh= on a one-rank NCCL group, against their unsharded runs")
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+                      WORLD_SIZE="1")
+    dist.init_process_group("nccl", timeout=datetime.timedelta(seconds=300))
+    single = batched = ldl = 0
+    try:
+        mesh = {axis: init_device_mesh("cuda", (1,), mesh_dim_names=(axis,))
+                for axis in ("batch", "scen")}
+        print(f"  NCCL {torch.cuda.nccl.version()}, group of one "
+              f"up in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+        def run(label, fn, want_routes, want_stats):
+            reset_counts(k1, k8)
+            t0 = time.perf_counter()
+            out = fn()
+            wall = time.perf_counter() - t0
+            routes = dict(k1.cholesky_lower.routes)
+            n2 = k2.ldl_lower_batched.launches
+            same_stats(out, want_stats, f"mesh {label}")
+            check(routes == want_routes, f"mesh {label}: K1 routes {routes}, the unsharded "
+                                         f"run's {want_routes}")
+            check(k8.syrk_update.launches == 0, f"mesh {label} launched K8")
+            print(f"  {label}: bit-equal to the unsharded run; {wall:.3f} s; K1 launches "
+                  f"{routes}, K2-batched {n2}", flush=True)
+            return out, routes, n2
+
+        qps = [mt.dense_dummy_qp(32, 16, seed=i) for i in range(BATCH)]
+        options = dict(BATCHED_OPTIONS, step_rule=mt.AdaptiveStep(0.995),
+                       regularization=mt.FixedRegularization(1e-8, -1e-8),
+                       linear_solver="pallas")
+        want, want_routes = unsharded["batched512"]
+        stats, routes, n2 = run("batched512 pallas", lambda: mt.solve_batched(
+            qps, mesh=mesh["batch"], device="cuda", **options), want_routes, want)
+        check_lanes(stats, ref["batched512"], "mesh batched512 pallas")
+        batched += sum(routes.values())
+        ldl += n2
+
+        entry = ref["two_stage_1024"]
+        prob, lb, ub = mt.random_two_stage(**entry["problem"], device="cuda")
+        want, want_routes = unsharded["two_stage"]
+        rec = entry["solves"]["pallas"]
+        st, routes, n2 = run("two_stage_1024 pallas", lambda: mt.solve_two_stage(
+            prob, lb, ub, mesh=mesh["scen"], device="cuda", print_level=40,
+            **rec["options"]), want_routes, want)
+        x0_err = float(np.abs(st.solution[:prob.n0] - np.asarray(rec["x0"])).max())
+        check(int(st.status) == rec["status"] and st.iter == rec["iter"]
+              and rel_err(st.objective, rec["objective"]) <= 1e-8 and x0_err <= 1e-7,
+              f"mesh two_stage_1024: {st.status.name} iter {st.iter} (ref {rec['iter']}), "
+              f"x0 off by {x0_err:.2e}")
+        single += routes.get("single", 0)
+        batched += sum(routes.values()) - routes.get("single", 0)
+        ldl += n2
+        del prob, lb, ub
+
+        sb = ref["sparse_batched"]["bandedlp_f64"]
+        want, want_routes, _ = unsharded["bandedlp_f64"]
+        res, routes, n2 = run("16 x banded_sparse_lp(2000, 1000) float64", lambda:
+                              mt.solve_sparse_batched(sparse_batch_problems(mt, sb),
+                                                      mesh=mesh["batch"], device="cuda",
+                                                      **sb["options"]),
+                              want_routes, want)
+        bad = [i for i, r in enumerate(res)
+               if not (int(r.status) == sb["status"][i] and r.iter == sb["iter"][i]
+                       and rel_err(r.objective, sb["objective"][i]) <= 1e-8)]
+        check(not bad, f"mesh sparse batch: lanes {bad} off the reference")
+        batched += sum(routes.values())
+        ldl += n2
+    finally:
+        dist.destroy_process_group()
+    secs = time.perf_counter() - t_phase
+    print(f"  phase 20 took {secs:.1f} s", flush=True)
+    return single, batched, ldl
+
+
 def main():
     import argparse
 
@@ -2600,9 +2726,10 @@ def main():
     k8_launches, k8_fact, blocked_ldl = blocked_phase(torch, mt, k1, k8, ref)
     variants_ldl = variants_phase(mt, k1, k8, ref)
     kb_err, kl_err, kb_times = batched_kernel_phase(torch, k1)
-    kb_launches, kl_launches = batched_path_phase(torch, mt, k1, k8, ref)
+    unsharded = {}   # phases 10, 12 and 18's runs, which phase 20 repeats on a mesh
+    kb_launches, kl_launches = batched_path_phase(torch, mt, k1, k8, ref, unsharded)
     layer_phase(torch, mt, k1, k8, ref)
-    ts_single, ts_batched = two_stage_phase(torch, mt, k1, k8, ref)
+    ts_single, ts_batched = two_stage_phase(torch, mt, k1, k8, ref, unsharded)
     pipe_launches = pipeline_phase(mt, k1, k8, ref, smi)
     host_phase(torch, mt, k1, k8, ref, smi)
     sparse_launches, sparse_ldl = sparse_phase(torch, mt, k1, k8, ref, smi)
@@ -2610,8 +2737,9 @@ def main():
     k2_err, k2_times = ldl_kernel_phase(torch, k2)
     qp_ldl, qp_batched, qp_lanes, _ = sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi,
                                                       args.save_fronts)
-    sb_batched, sb_ldl = sparse_batch_phase(torch, mt, k1, k8, k2, ref, smi)
+    sb_batched, sb_ldl = sparse_batch_phase(torch, mt, k1, k8, k2, ref, smi, unsharded)
     bk_k1, bk_k8, bk_ldl, *_ = backends_phase(torch, mt, k1, k8, k2, ref)
+    mesh_single, mesh_batched, mesh_ldl = mesh_phase(torch, mt, k1, k8, k2, ref, unsharded)
 
     t600 = k1_times[("float32", 600)]
     t8 = k8_times[("float32", (3840, 1792, 256))]
@@ -2624,7 +2752,7 @@ def main():
         "route": "cuda",
         "source": "madqp_tpu_torch/csrc/cholesky.cu",
         "replaces": "madqp_tpu/ops/pallas_chol.py:158",
-        "launches": k1_launches + ts_single + pipe_launches,
+        "launches": k1_launches + ts_single + pipe_launches + mesh_single,
         "max_abs_err": k1_err,
         "ms": t600["kernel"],
         "plain_ms": t600["plain"],
@@ -2648,7 +2776,8 @@ def main():
         "route": "cuda",
         "source": "madqp_tpu_torch/csrc/cholesky_batched.cu",
         "replaces": "madqp_tpu/ops/pallas_chol.py:158",
-        "launches": kb_launches + ts_batched + sn_batched + qp_batched + sb_batched + bk_k1,
+        "launches": (kb_launches + ts_batched + sn_batched + qp_batched + sb_batched + bk_k1
+                     + mesh_batched),
         "max_abs_err": kb_err,
         "ms": tb["kernel"],
         "plain_ms": tb["plain"],
@@ -2673,7 +2802,7 @@ def main():
         "source": "madqp_tpu_torch/csrc/ldl_batched.cu",
         "replaces": "madqp_tpu/ops/blocked_dense.py:37 via madqp_tpu/ops/sparse_chol.py:1306",
         "launches": (blocked_ldl + variants_ldl + sparse_ldl + sn_ldl + qp_ldl + sb_ldl
-                     + bk_ldl),
+                     + bk_ldl + mesh_ldl),
         "max_abs_err": k2_err,
         "ms": t2["kernel"],
         "plain_ms": t2["plain"],

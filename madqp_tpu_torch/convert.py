@@ -36,7 +36,9 @@ def _is_none(v) -> bool:
 
 def _fields_to_device(cls, fields: dict, dtype, device, optional):
     """`cls` from NumPy arrays: bool masks, the `optional` fields None
-    where the reference has None, every other field a tensor."""
+    where the reference has None, every other field a tensor (a field with
+    a default that `fields` lacks, such as a problem's mesh axis, keeps
+    its default)."""
     def convert(name):
         v = fields.get(name)
         if name in optional and _is_none(v):
@@ -46,7 +48,8 @@ def _fields_to_device(cls, fields: dict, dtype, device, optional):
         # np.array copies: arrays exported by other frameworks are read-only
         return torch.as_tensor(np.array(v), dtype=dtype, device=device).contiguous()
 
-    return cls(**{name: convert(name) for name in cls._fields})
+    return cls(**{name: convert(name) for name in cls._fields
+                  if name in fields or name not in cls._field_defaults})
 
 
 def problem_arrays_from_numpy(fields: dict, dtype=torch.float64, *,

@@ -17,11 +17,24 @@ NumPy) and stacked on the device with a leading lane axis; the lane-masked
     returns the host's stats for it; `endgame="f64"` (or no native
     library) runs a warm float64 phase of the failed lanes on the card.
 
-Where this differs from the reference:
-  * `mesh=` (sharding the lanes over devices) raises `NotImplementedError`:
-    one card here; ROADMAP.md Queue 1, item 17 brings `torch.distributed`.
-  * `loop_mode` is accepted and has no effect: the loop is always stepped
-    on the host, so the reference's chunked dispatch has no counterpart.
+With `mesh=` (a `torch.distributed` DeviceMesh, one process per card;
+`parallel/mesh.py`) the lanes are sharded over the mesh's `batch_axis`,
+as the reference's `shard_map` shards them:
+  * the batch is rounded up to a multiple of the mesh size with copies of
+    the last instance, and rank r keeps the lanes [r L, (r + 1) L);
+  * each rank builds the standard forms of its own lanes only; the padded
+    shape (m_tot, n_tot, whether any lane has a Hessian) is agreed in one
+    `gather_objects`;
+  * the solve has no collective: each rank steps its own lanes;
+  * under the float32 phase no lane is rescued on the host, and when any
+    lane of the whole batch fails (`sum_across` of the failed-lane count)
+    every lane of every rank runs the full-width float64 phase 2;
+  * `solve_all` gathers every rank's stats (`gather_objects`), so every
+    rank returns all instances in order.
+
+Where this differs from the reference: `loop_mode` is accepted and has no
+effect: the loop is always stepped on the host, so the reference's
+chunked dispatch has no counterpart.
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ from ..solver.mpc import BatchedMPCKernel, select_lanes, tree_map
 from ..solver.state import IPMState, ProblemArrays
 from ..utils import Counters, ExecutionStats, Status, load_options
 from ..utils.options import IPMOptions
+from .mesh import Axis, resolve
 
 _STATUS_MAP = {
     S.SUCCESS: Status.SOLVE_SUCCEEDED,
@@ -49,8 +63,6 @@ _STATUS_MAP = {
     S.STALLED: Status.SOLVED_TO_ACCEPTABLE_LEVEL,
     S.RUNNING: Status.REGULAR,
 }
-
-MESH_ITEM = "Queue 1, item 17"   # lanes sharded over cards
 
 
 def pad_standard(
@@ -110,63 +122,118 @@ def run_lanes(kernel: BatchedMPCKernel, prob: ProblemArrays,
         state = new if n_running == lanes else select_lanes(running, new, state)
 
 
+def own_lanes(n_real: int, axis: Optional[Axis]) -> List[int]:
+    """The instance behind each lane this rank keeps: the batch rounded up
+    to a multiple of the mesh size with copies of the last instance (the
+    reference's padding), block `axis.rank` of it; every instance without a
+    mesh."""
+    idx = list(range(n_real))
+    if axis is None:
+        return idx
+    idx += idx[-1:] * (-n_real % axis.world)
+    per = len(idx) // axis.world
+    return idx[axis.rank * per:(axis.rank + 1) * per]
+
+
+def unpack_lane(final_host: dict, lane: int, info: TransformInfo, qp: QuadraticProblem,
+                opts: IPMOptions, wall: float, k: int) -> ExecutionStats:
+    """The ExecutionStats of one lane of a final state fetched to the host
+    (recovered to user coordinates)."""
+    x_user = info.recover_x(np.asarray(final_host["x"][lane], np.float64)[: info.n])
+    y_user = info.recover_y(np.asarray(final_host["y"][lane], np.float64)[: info.m])
+    g_user = qp.grad(x_user)
+    r_fix = g_user + qp.jtprod(y_user)
+    zl_user = info.recover_z(np.asarray(final_host["zl"][lane], np.float64)[: info.n],
+                             np.maximum(r_fix, 0.0))
+    zu_user = info.recover_z(np.asarray(final_host["zu"][lane], np.float64)[: info.n],
+                             np.maximum(-r_fix, 0.0))
+    return ExecutionStats(
+        status=_STATUS_MAP.get(int(final_host["status"][lane]), Status.INTERNAL_ERROR),
+        objective=float(qp.obj(x_user)),
+        solution=x_user,
+        constraints=qp.cons(x_user),
+        multipliers=y_user,
+        multipliers_L=zl_user,
+        multipliers_U=zu_user,
+        iter=k,
+        counters=Counters(total_time=wall, k=k),
+        primal_feas=float(final_host["inf_pr"][lane]),
+        dual_feas=float(final_host["inf_du"][lane]),
+        complementarity=float(final_host["inf_compl"][lane]),
+        options=opts,
+    )
+
+
+def state_to_host(final: IPMState) -> dict:
+    """Every tensor field of a final state but the direction, on the host."""
+    return {name: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+            for name, v in final._asdict().items() if name != "d"}
+
+
 @dataclasses.dataclass
 class BatchedMPCSolver:
-    """Solve a batch of QPs in lockstep on one card."""
+    """Solve a batch of QPs in lockstep on one card, or sharded over the
+    cards of a mesh (then `prob` and the starting point hold this rank's
+    lanes only)."""
 
     prob: ProblemArrays          # leading batch axis on every tensor
     x0: torch.Tensor
     y0: torch.Tensor
     lb: torch.Tensor
     ub: torch.Tensor
-    infos: List[TransformInfo]
-    qps: List[QuadraticProblem]
+    infos: List[TransformInfo]   # this rank's lanes'
+    qps: List[QuadraticProblem]  # every instance
     opts: IPMOptions
-    n_real: int                  # instances (no batch padding on one card)
+    n_real: int                  # instances before batch padding
+    mesh: object = None          # a DeviceMesh, or None (one card)
+    batch_axis: str = "batch"
+    lanes: Optional[List[int]] = None   # the instance behind each local lane
+    axis: Optional[Axis] = None
 
     @classmethod
     def from_problems(
         cls,
         qps: Sequence[QuadraticProblem],
         mesh=None,
+        batch_axis: str = "batch",
         *,
         device="cuda",
         **options,
     ) -> "BatchedMPCSolver":
         """Build the padded batch on `device` (the CUDA card unless the
-        caller asks for the CPU).  Every other keyword is a solver option.
-        `mesh` must be None (one card)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: sharding the batch over several devices is not ported "
-                f"yet (ROADMAP.md {MESH_ITEM}, torch.distributed)")
+        caller asks for the CPU; under a mesh the device its rank computes
+        on, which `device` must agree with).  Every other keyword is a
+        solver option."""
         opts, _ = load_options(**options)
-        device = torch.device(device)
+        axis = None if mesh is None else resolve(mesh, batch_axis, device)
+        device = torch.device(device) if axis is None else axis.device
         if device.type == "cuda":
             # Full-f32 products: the float32 factorization's accuracy rests
             # on them (as in MPCSolver).
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        built = [
-            build_standard_form(qp, scaling=opts.scaling, max_gradient=opts.max_gradient)
-            for qp in qps
-        ]
-        stds = [b[0] for b in built]
-
-        m_tot = max(s.m for s in stds)
-        n_tot = max(s.n + (m_tot - s.m) for s in stds)
-        force_H = any(s.H is not None for s in stds)
-        padded = [
-            pad_standard(s, b[2], b[3], n_tot, m_tot, force_H)
-            for s, b in zip(stds, built)
-        ]
+        lanes = own_lanes(len(qps), axis)
+        built = {i: build_standard_form(qps[i], scaling=opts.scaling,
+                                        max_gradient=opts.max_gradient)
+                 for i in sorted(set(lanes))}
+        shapes = [(max(b[0].m for b in built.values()),
+                   max(b[0].n - b[0].m for b in built.values()),
+                   any(b[0].H is not None for b in built.values()))]
+        if axis is not None:
+            shapes = axis.gather_objects(shapes)
+        m_tot = max(m for m, _, _ in shapes)
+        n_tot = m_tot + max(d for _, d, _ in shapes)
+        force_H = any(h for _, _, h in shapes)
+        padded = {i: pad_standard(s, x, y, n_tot, m_tot, force_H)
+                  for i, (s, _, x, y) in built.items()}
 
         dtype = torch_dtype(opts.dtype)
 
         def stack(xs, dt=dtype):
             return torch.as_tensor(np.stack(xs), dtype=dt, device=device)
 
-        stds = [p for p, _, _ in padded]
+        rows = [padded[i] for i in lanes]
+        stds = [p for p, _, _ in rows]
         prob = ProblemArrays(
             c0=stack([s.c0 for s in stds]),
             c=stack([s.c for s in stds]),
@@ -177,11 +244,12 @@ class BatchedMPCSolver:
             has_ub=stack([s.has_ub for s in stds], torch.bool),
         )
         solver = cls(
-            prob=prob, x0=stack([x for _, x, _ in padded]),
-            y0=stack([y for _, _, y in padded]),
+            prob=prob, x0=stack([x for _, x, _ in rows]),
+            y0=stack([y for _, _, y in rows]),
             lb=stack([s.lb for s in stds]), ub=stack([s.ub for s in stds]),
-            infos=[b[1] for b in built], qps=list(qps), opts=opts,
-            n_real=len(qps),
+            infos=[built[i][1] for i in lanes], qps=list(qps), opts=opts,
+            n_real=len(qps), mesh=mesh, batch_axis=batch_axis, lanes=lanes,
+            axis=axis,
         )
         solver._bind_kernels()
         return solver
@@ -231,6 +299,17 @@ class BatchedMPCSolver:
             return f1
         statuses = f1.status.cpu().numpy()
         bad = np.flatnonzero(statuses != S.SUCCESS)
+
+        def full_width():
+            f2 = run_lanes(kern2, prob, kern2.init_state_warm(
+                prob, f1.x, f1.y, f1.zl, f1.zu, self.lb, self.ub))
+            return f2._replace(k=f1.k + f2.k)
+
+        if self.axis is not None:
+            # Lanes span cards: no host rescue, and the full-width phase 2
+            # on every lane of every rank when any lane of the batch failed.
+            n_bad = self.axis.sum_across(torch.tensor(bad.size, device=f1.x.device))
+            return f1 if int(n_bad) == 0 else full_width()
         if bad.size == 0:
             return f1
         if self.opts.endgame in ("auto", "host"):
@@ -242,9 +321,7 @@ class BatchedMPCSolver:
                 return f1
         if bad.size > statuses.size // 2:
             # Mostly-failed batches keep the full-width lockstep rescue.
-            f2 = run_lanes(kern2, prob, kern2.init_state_warm(
-                prob, f1.x, f1.y, f1.zl, f1.zu, self.lb, self.ub))
-            return f2._replace(k=f1.k + f2.k)
+            return full_width()
         # Lane-shrunk rescue: gather the failed lanes, pad to a power-of-two
         # lane count, run the warm full-precision phase on that small
         # batch, and scatter the results back.
@@ -263,7 +340,7 @@ class BatchedMPCSolver:
 
     def solve_batch(self, prob: Optional[ProblemArrays] = None) -> IPMState:
         """Run all instances; returns the stacked final IPMState (the device
-        work finished).
+        work finished): under a mesh this rank's lanes only.
 
         `prob` optionally overrides the problem values (same shapes)."""
         final = self._solve(prob if prob is not None else self.prob)
@@ -273,58 +350,35 @@ class BatchedMPCSolver:
 
     def solve_all(self) -> List[ExecutionStats]:
         """Solve and unpack per-instance ExecutionStats (a host-rescued
-        lane's are the host solver's, in user coordinates)."""
+        lane's are the host solver's, in user coordinates).  Under a mesh
+        every rank returns every instance's, in order; each carries the
+        wall of the rank that solved it."""
         t0 = time.time()
         final = self.solve_batch()
         wall = time.time() - t0
-        host = {name: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
-                for name, v in final._asdict().items() if name != "d"}
+        host = state_to_host(final)
+        start = 0 if self.axis is None else self.axis.rank * len(self.lanes)
         out = []
-        for i in range(self.n_real):
+        for lane, i in enumerate(self.lanes):
+            if start + lane >= self.n_real:
+                continue  # batch-padding copy
             if i in self._rescue_overrides:
                 out.append(self._rescue_overrides[i])
                 continue
-            info = self.infos[i]
-            qp = self.qps[i]
-            x_int = np.asarray(host["x"][i], dtype=np.float64)[: info.n]
-            y_int = np.asarray(host["y"][i], dtype=np.float64)[: info.m]
-            zl_int = np.asarray(host["zl"][i], dtype=np.float64)[: info.n]
-            zu_int = np.asarray(host["zu"][i], dtype=np.float64)[: info.n]
-            x_user = info.recover_x(x_int)
-            y_user = info.recover_y(y_int)
-            g_user = qp.grad(x_user)
-            r_fix = g_user + qp.jtprod(y_user)
-            zl_user = info.recover_z(zl_int, np.maximum(r_fix, 0.0))
-            zu_user = info.recover_z(zu_int, np.maximum(-r_fix, 0.0))
-            k = int(host["k"][i])
-            out.append(
-                ExecutionStats(
-                    status=_STATUS_MAP.get(int(host["status"][i]), Status.INTERNAL_ERROR),
-                    objective=float(qp.obj(x_user)),
-                    solution=x_user,
-                    constraints=qp.cons(x_user),
-                    multipliers=y_user,
-                    multipliers_L=zl_user,
-                    multipliers_U=zu_user,
-                    iter=k,
-                    counters=Counters(total_time=wall, k=k),
-                    primal_feas=float(host["inf_pr"][i]),
-                    dual_feas=float(host["inf_du"][i]),
-                    complementarity=float(host["inf_compl"][i]),
-                    options=self.opts,
-                )
-            )
-        return out
+            out.append(unpack_lane(host, lane, self.infos[lane], self.qps[i], self.opts,
+                                   wall, int(host["k"][lane])))
+        return out if self.axis is None else self.axis.gather_objects(out)
 
 
 def solve_batched(
     qps: Sequence[QuadraticProblem],
     mesh=None,
+    batch_axis: str = "batch",
     *,
     device="cuda",
     **options,
 ) -> List[ExecutionStats]:
     """Convenience wrapper: batch-solve a list of QPs on `device` (the CUDA
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU), or sharded over `mesh`."""
     return BatchedMPCSolver.from_problems(
-        qps, mesh=mesh, device=device, **options).solve_all()
+        qps, mesh=mesh, batch_axis=batch_axis, device=device, **options).solve_all()

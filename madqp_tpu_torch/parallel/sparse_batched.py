@@ -20,10 +20,20 @@ lane from phase 1's iterate (`init_state_warm`).
 Use cases: scenario sweeps of one model (same network, different data),
 receding-horizon re-solves, Monte-Carlo LP/QP studies.
 
-Where this differs from the reference: `mesh=` (sharding the lanes over
-devices) raises `NotImplementedError` (ROADMAP.md Queue 1, item 17), and
-the KKTs are cached with their BatchedMPCKernel rather than a compiled
-program, since nothing is compiled per pattern.
+With `mesh=` (a `torch.distributed` DeviceMesh, one process per card;
+`parallel/mesh.py`) the lanes are sharded over `batch_axis` as in
+`parallel/batched.py`: the batch rounded up to a multiple of the mesh
+size, rank r keeping the block [r L, (r + 1) L) and building the standard
+forms of those lanes only.  Each rank runs the symbolic phase itself (the
+schedule is a deterministic function of the shared pattern, so every rank
+holds the same one: the pattern arrays are replicated, the values
+sharded) and launches each front stack of its own lanes once per trial.
+The solve has no collective; the pattern check and the results are
+gathered (`gather_objects`), so every rank returns every instance's stats.
+
+Where this differs from the reference: the KKTs are cached with their
+BatchedMPCKernel rather than a compiled program, since nothing is compiled
+per pattern.
 """
 
 from __future__ import annotations
@@ -40,8 +50,9 @@ from ..models.qp import QuadraticProblem, build_standard_form_sparse
 from ..ops.kkt import torch_dtype
 from ..solver.mpc import BatchedMPCKernel
 from ..solver.sparse_common import canonical_coo_vals, pattern_fingerprint, two_phase_opts
-from ..utils import Counters, ExecutionStats, Status, load_options
-from .batched import _STATUS_MAP, MESH_ITEM, run_lanes
+from ..utils import ExecutionStats, load_options
+from .batched import own_lanes, run_lanes, state_to_host, unpack_lane
+from .mesh import resolve
 
 
 def _diag_hessian(H) -> bool:
@@ -49,6 +60,13 @@ def _diag_hessian(H) -> bool:
         return True
     Hcoo = sp.coo_matrix(H)
     return bool((Hcoo.row == Hcoo.col).all())
+
+
+def _mesh_key(mesh):
+    if mesh is None:
+        return None
+    return (mesh.device_type, tuple(mesh.mesh_dim_names or ()), tuple(mesh.shape),
+            tuple(mesh.mesh.flatten().tolist()))
 
 
 # Pattern-keyed cache of the KKTs (their symbolic schedules: the dominant
@@ -98,24 +116,23 @@ def solve_sparse_batched(
     'auto' picks normal equations when the Hessian is absent/diagonal
     ("normal" insists on them, "augmented" takes the K2 system).  The
     normal equations always run the supernodal "batched" mode, whatever
-    `dense_normal_limit` says.  `mesh` must be None (one card);
-    `batch_axis` names the mesh axis and has no use without one."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: sharding the batch over several devices is not ported "
-            f"yet (ROADMAP.md {MESH_ITEM}, torch.distributed)")
+    `dense_normal_limit` says.  Under `mesh` (its dimension `batch_axis`)
+    the device is the one the rank computes on, and every rank returns
+    every instance's stats."""
     if not qps:
         return []
-    device = torch.device(device)
+    axis = None if mesh is None else resolve(mesh, batch_axis, device)
+    device = torch.device(device) if axis is None else axis.device
     opts, _ = load_options(**options)
-    built = [
-        build_standard_form_sparse(qp, scaling=opts.scaling,
-                                   max_gradient=opts.max_gradient)
-        for qp in qps
-    ]
-    stds = [b[0] for b in built]
-    infos = [b[1] for b in built]
-    fps = {pattern_fingerprint(s.A, s.H) for s in stds}
+    lanes = own_lanes(len(qps), axis)
+    built = {i: build_standard_form_sparse(qps[i], scaling=opts.scaling,
+                                           max_gradient=opts.max_gradient)
+             for i in sorted(set(lanes))}
+    stds = [built[i][0] for i in lanes]
+    infos = [built[i][1] for i in lanes]
+    fps = {pattern_fingerprint(s.A, s.H) for s, *_ in built.values()}
+    if axis is not None:
+        fps = set(axis.gather_objects(sorted(fps)))
     if len(fps) != 1:
         raise ValueError(
             "solve_sparse_batched requires all instances to share the "
@@ -149,9 +166,10 @@ def solve_sparse_batched(
                                         fact_dtype=fd, inverse=inv)
 
     fp = fps.pop()
+    mkey = _mesh_key(mesh)
 
     def cached(o, entry, build):
-        key = (fp, o, use_normal, order, entry)
+        key = (fp, o, use_normal, order, mkey, batch_axis, entry)
         hit = _BATCHED_CACHE.get(key)
         if hit is not None:
             _BATCHED_CACHE.move_to_end(key)
@@ -171,8 +189,8 @@ def solve_sparse_batched(
     def stack(vs):
         return torch.as_tensor(np.stack(vs), dtype=dtype, device=device)
 
-    x0 = stack([b[2] for b in built])
-    y0 = stack([b[3] for b in built])
+    x0 = stack([built[i][2] for i in lanes])
+    y0 = stack([built[i][3] for i in lanes])
     lb = stack([s.lb for s in stds])
     ub = stack([s.ub for s in stds])
 
@@ -193,35 +211,9 @@ def solve_sparse_batched(
         torch.cuda.synchronize(device)
     wall = time.time() - t0
 
-    host = {name: (v.detach().to("cpu").numpy() if isinstance(v, torch.Tensor) else v)
-            for name, v in final._asdict().items() if name != "d"}
-    out = []
-    for lane, (info, qp) in enumerate(zip(infos, qps)):
-        x_user = info.recover_x(np.asarray(host["x"][lane], np.float64)[: info.n])
-        y_user = info.recover_y(np.asarray(host["y"][lane], np.float64)[: info.m])
-        g_user = qp.grad(x_user)
-        r_fix = g_user + qp.jtprod(y_user)
-        zl_user = info.recover_z(
-            np.asarray(host["zl"][lane], np.float64)[: info.n],
-            np.maximum(r_fix, 0.0))
-        zu_user = info.recover_z(
-            np.asarray(host["zu"][lane], np.float64)[: info.n],
-            np.maximum(-r_fix, 0.0))
-        k = int(host["k"][lane]) + (int(extra[lane]) if extra is not None else 0)
-        out.append(ExecutionStats(
-            status=_STATUS_MAP.get(int(host["status"][lane]),
-                                   Status.INTERNAL_ERROR),
-            objective=float(qp.obj(x_user)),
-            solution=x_user,
-            constraints=qp.cons(x_user),
-            multipliers=y_user,
-            multipliers_L=zl_user,
-            multipliers_U=zu_user,
-            iter=k,
-            counters=Counters(total_time=wall, k=k),
-            primal_feas=float(host["inf_pr"][lane]),
-            dual_feas=float(host["inf_du"][lane]),
-            complementarity=float(host["inf_compl"][lane]),
-            options=opts,
-        ))
-    return out
+    host = state_to_host(final)
+    start = 0 if axis is None else axis.rank * len(lanes)
+    out = [unpack_lane(host, lane, infos[lane], qps[i], opts, wall,
+                       int(host["k"][lane]) + (int(extra[lane]) if extra is not None else 0))
+           for lane, i in enumerate(lanes) if start + lane < len(qps)]
+    return out if axis is None else axis.gather_objects(out)

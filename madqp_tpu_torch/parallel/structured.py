@@ -26,10 +26,26 @@ Where this differs from the reference:
     first stage's C00 and S0 through K1 on one matrix.  The reference's
     `make_kkt` drops the backend for "schur", so there every factor is the
     library Cholesky; any backend but "pallas" does the same here.
-  * One card: the reference's sharding hooks (a mesh over the scenario
-    axis) are not ported; `mesh=` raises `NotImplementedError` naming
-    ROADMAP.md Queue 1, item 17.  The cross-scenario sums are einsums over
-    the scenario axis.
+  * The reference's sharding hooks (`_replicate`, `_to_scen`,
+    `_reduce_einsum`, with XLA placing the collectives) are explicit here:
+    with `mesh=` (a `torch.distributed` DeviceMesh, one process per card;
+    `parallel/mesh.py`) the problem carries the `Axis` of `scen_axis`.
+
+Under a mesh the scenario stacks H_s, T_s and W_s are sharded (rank r
+keeps scenarios [r L, (r + 1) L), L = N / world); everything else is
+replicated on every rank: the flat IPM state with c, b and the bound
+masks, H0 and A0, and the whole first stage (C00 and S0 are factored on
+every rank).  The collectives, by site:
+  * `split_x` / `split_y` take the rank's rows of a replicated vector (no
+    communication); `join_x` / `join_y` all-gather the (L, ns) / (L, ms)
+    pieces (`gather_rows`);
+  * `jac_rmv`'s first-stage term is A0'y0 + sum_across(sum_i Ti'yi);
+  * `SchurKKT.factorize`: C00 = diag(d0) + sum_across(sum_i Ti' Si^-1 Ti)
+    (+ H0), one n0^2 all-reduce per factorization trial; `factor_ok` is
+    global (`all_true`), since the host's retry loop branches on it;
+  * `SchurKKT.solve`: one n0 all-reduce of sum_i Ti' qi, then the joins.
+Every host decision reads replicated tensors, which every rank holds
+bit-equal.
 """
 
 from __future__ import annotations
@@ -45,7 +61,28 @@ from ..ops.pallas_chol import select_cholesky
 from ..solver import state as S
 from ..solver.mpc import MPCKernel, tree_map
 from ..utils import Counters, ExecutionStats, Status, load_options
-from .batched import MESH_ITEM, _STATUS_MAP
+from .batched import _STATUS_MAP
+from .mesh import Axis, resolve
+
+
+def _own(axis: Optional[Axis], rows):
+    """This rank's block of a replicated (N, .) stack (all of it without a
+    mesh)."""
+    if axis is None:
+        return rows
+    per = rows.shape[0] // axis.world
+    return rows[axis.rank * per:(axis.rank + 1) * per]
+
+
+def _join(axis: Optional[Axis], v0, vs):
+    """The flat replicated [v0; vec(v_s)] from the first-stage part and this
+    rank's scenario rows."""
+    return torch.cat([v0, (vs if axis is None else axis.gather_rows(vs)).reshape(-1)])
+
+
+def _sum(axis: Optional[Axis], t):
+    """A sum over the scenario axis: this rank's part, summed across ranks."""
+    return t if axis is None else axis.sum_across(t)
 
 
 class TwoStageProblem(NamedTuple):
@@ -65,6 +102,8 @@ class TwoStageProblem(NamedTuple):
     H_s: Optional[torch.Tensor]  # (N, ns, ns) or None
     T_s: torch.Tensor            # (N, ms, n0)
     W_s: torch.Tensor            # (N, ms, ns)
+    # The mesh's scenario axis: the stacks hold this rank's scenarios only.
+    axis: Optional[Axis] = None
 
     # -- layout --------------------------------------------------------------
 
@@ -78,7 +117,8 @@ class TwoStageProblem(NamedTuple):
 
     @property
     def N(self) -> int:
-        return self.T_s.shape[0]
+        """Scenarios in all (on every rank of a mesh)."""
+        return self.T_s.shape[0] * (1 if self.axis is None else self.axis.world)
 
     @property
     def ns(self) -> int:
@@ -101,16 +141,16 @@ class TwoStageProblem(NamedTuple):
         return self.H0 is None and self.H_s is None
 
     def split_x(self, x):
-        return x[: self.n0], x[self.n0:].reshape(self.N, self.ns)
+        return x[: self.n0], _own(self.axis, x[self.n0:].reshape(self.N, self.ns))
 
     def split_y(self, y):
-        return y[: self.m0], y[self.m0:].reshape(self.N, self.ms)
+        return y[: self.m0], _own(self.axis, y[self.m0:].reshape(self.N, self.ms))
 
     def join_x(self, x0, xs):
-        return torch.cat([x0, xs.reshape(-1)])
+        return _join(self.axis, x0, xs)
 
     def join_y(self, y0, ys):
-        return torch.cat([y0, ys.reshape(-1)])
+        return _join(self.axis, y0, ys)
 
     # -- matvec protocol -----------------------------------------------------
 
@@ -130,7 +170,7 @@ class TwoStageProblem(NamedTuple):
 
     def jac_rmv(self, y):
         y0, ys = self.split_y(y)
-        x0 = self.A0.T @ y0 + torch.einsum("imk,im->k", self.T_s, ys)
+        x0 = self.A0.T @ y0 + _sum(self.axis, torch.einsum("imk,im->k", self.T_s, ys))
         xs = torch.einsum("imn,im->in", self.W_s, ys)
         return self.join_x(x0, xs)
 
@@ -143,6 +183,7 @@ class SchurFactors(NamedTuple):
     first: CondensedFactors         # first-stage condensed factors over C00
     W_s: torch.Tensor               # (N, ms, ns) scenario recourse blocks
     T_s: torch.Tensor               # (N, ms, n0) scenario coupling blocks
+    axis: Optional[Axis] = None     # the problem's (the stacks: this rank's)
 
 
 class _FirstStageProb(NamedTuple):
@@ -184,14 +225,14 @@ class SchurKKT:
         X = torch.cholesky_solve(p.T_s, chol_S)  # S_i^-1 T_i
 
         # First-stage Schur complement C00 = H0 + diag(d0) + sum_i Ti' Si^-1 Ti.
-        C00 = torch.diag(d0) + torch.einsum("imk,iml->kl", p.T_s, X)
+        C00 = torch.diag(d0) + _sum(p.axis, torch.einsum("imk,iml->kl", p.T_s, X))
         if p.H0 is not None:
             C00 = C00 + p.H0
         # C00 is the first stage's whole W: no diagonal added to it.
         first = self._dense.factorize(_FirstStageProb(H=C00.contiguous(), A=p.A0),
                                       torch.zeros_like(d0), del_c)
         return SchurFactors(chol_U=chol_U, u_diag=ds, chol_S=chol_S, X=X,
-                            first=first, W_s=p.W_s, T_s=p.T_s)
+                            first=first, W_s=p.W_s, T_s=p.T_s, axis=p.axis)
 
     def _U_solve(self, f: SchurFactors, r):
         """U_i^-1 r per scenario, r of shape (N, ns) or (N, ns, k)."""
@@ -200,34 +241,36 @@ class SchurKKT:
         return DenseCondensedKKT._cho_solve(f.chol_U, r)
 
     def solve(self, f: SchurFactors, rx, ry):
-        N, ms, n0 = f.X.shape
+        _, ms, n0 = f.X.shape
         ns = f.u_diag.shape[1]
         m0 = f.first.A.shape[0]
-        rx0, rxs = rx[:n0], rx[n0:].reshape(N, ns)
-        ry0, rys = ry[:m0], ry[m0:].reshape(N, ms)
+        rx0, rxs = rx[:n0], _own(f.axis, rx[n0:].reshape(-1, ns))
+        ry0, rys = ry[:m0], _own(f.axis, ry[m0:].reshape(-1, ms))
 
         # Local forward elimination: q_i = S_i^-1 (W_i U_i^-1 rx_i - ry_i).
         w_term = torch.einsum("imn,in->im", f.W_s, self._U_solve(f, rxs))
         q = DenseCondensedKKT._cho_solve(f.chol_S, w_term - rys)
 
         # First-stage solve with reduced rhs r0 - sum_i Ti' q_i.
-        TtQ = torch.einsum("imk,im->k", f.T_s, q)
+        TtQ = _sum(f.axis, torch.einsum("imk,im->k", f.T_s, q))
         dx0, dy0 = self._dense.solve(f.first, rx0 - TtQ, ry0)
 
         # Local back-substitution.
         dys = q + torch.einsum("imk,k->im", f.X, dx0)
         dxs = self._U_solve(f, rxs - torch.einsum("imn,im->in", f.W_s, dys))
-        return torch.cat([dx0, dxs.reshape(-1)]), torch.cat([dy0, dys.reshape(-1)])
+        return _join(f.axis, dx0, dxs), _join(f.axis, dy0, dys)
 
     def factor_ok(self, f: SchurFactors) -> torch.Tensor:
         """Every factor diagonal finite and positive (U's diagonal itself
-        for an LP): a 0-d bool tensor."""
+        for an LP): a 0-d bool tensor, on every rank of a mesh whether every
+        rank's factors are."""
         def diag_ok(L):
             d = torch.diagonal(L, dim1=-2, dim2=-1)
             return (torch.isfinite(d) & (d > 0)).all()
 
         ok_U = (f.u_diag > 0).all() if f.chol_U is None else diag_ok(f.chol_U)
-        return ok_U & diag_ok(f.chol_S) & self._dense.factor_ok(f.first)
+        ok = ok_U & diag_ok(f.chol_S) & self._dense.factor_ok(f.first)
+        return ok if f.axis is None else f.axis.all_true(ok)
 
 
 # ---------------------------------------------------------------------------
@@ -358,21 +401,29 @@ def solve_two_stage(
 
     As the reference's `solve_from`: the MPC loop from x = 0, y = 0 until
     the status leaves RUNNING, with no two-phase rescue and no wall-time
-    limit.  `mesh` (the scenario axis sharded over cards) raises
-    `NotImplementedError`; `scen_axis` names that axis and is unused on
-    one card."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: sharding the scenarios over several devices is not ported "
-            f"yet (ROADMAP.md {MESH_ITEM}, torch.distributed)")
+    limit.
+
+    With `mesh` (a DeviceMesh whose dimension `scen_axis` holds this rank)
+    `prob` is the whole problem and each rank keeps its block of the
+    scenario stacks, as the reference's `device_put` with `P(scen_axis)`
+    does (N % world != 0 raises ValueError); every rank returns the same
+    stats."""
     opts, _ = load_options(**options)
     opts = opts.replace(kkt_system="schur")
-    device = torch.device(device)
+    axis = None if mesh is None else resolve(mesh, scen_axis, device)
+    device = torch.device(device) if axis is None else axis.device
     if device.type == "cuda":
         # Full-f32 products: the float32 factorization's accuracy rests on
         # them (as in MPCSolver).
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    if axis is not None:
+        if prob.N % axis.world:
+            raise ValueError(f"{prob.N} scenarios do not split evenly over the "
+                             f"{axis.world} ranks of the mesh axis {scen_axis!r}")
+        prob = prob._replace(
+            H_s=None if prob.H_s is None else _own(axis, prob.H_s),
+            T_s=_own(axis, prob.T_s), W_s=_own(axis, prob.W_s), axis=axis)
     prob = tree_map(lambda t: t.to(device), prob)
     lb, ub = lb.to(device), ub.to(device)
     kernel = MPCKernel(opts)

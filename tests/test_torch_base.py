@@ -242,6 +242,7 @@ def test_port_never_imports_jax():
     files = sorted(sources) + [REPO / "chip_smoke.py",
                                *sorted((REPO / "tools").glob("*_torch.py"))]
     assert REPO / "tools" / "run_suite_torch.py" in files
+    assert REPO / "tools" / "multihost_torch.py" in files
     assert len(files) > 10
     new_modules = {"ops/_build.py", "ops/syrk.py", "ops/blocked_dense.py",
                    "parallel/__init__.py", "parallel/batched.py", "diff.py",
@@ -251,7 +252,8 @@ def test_port_never_imports_jax():
                    "solver/sparse_common.py", "solver/sparse_lp.py",
                    "solver/sparse_qp.py", "ops/sparse_chol.py", "ops/ldl_batched.py",
                    "ops/krylov.py", "solver/sparse_condensed.py",
-                   "parallel/sparse_batched.py", "utils/roofline.py", "utils/profiling.py"}
+                   "parallel/sparse_batched.py", "utils/roofline.py", "utils/profiling.py",
+                   "parallel/mesh.py"}
     assert new_modules <= {f.relative_to(PORT_DIR).as_posix() for f in sources}
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []

@@ -14,8 +14,8 @@
   iterations within RESCUE_ITER_BAND, objective within 1e-9 relative and
   solution within 1e-6.
 * The port's batched lanes against its own single solves (equal
-  iterations in float64), the path that raises (mesh=) and the backends
-  that did until the batch took them.
+  iterations in float64), a mesh that is not a DeviceMesh (TypeError) and
+  the backends that raised until the batch took them.
 * The host rescue (endgame "auto" and "host" with the native library):
   the same lanes rescued as in the reference, each with the port's
   solve_host stats.
@@ -288,14 +288,17 @@ def test_run_lanes_freezes_stopped_lanes():
     (dict(kkt_system="k2.5"), "item 18"),
 ])
 def test_unported_batched_paths_raise(kwargs, item):
-    """mesh= raises NotImplementedError naming ROADMAP.md Queue 1 item 17.
-    The item-18 cases raised until every dense KKT backend had a batched
-    form; now each solves as the reference's vmapped solver does
-    (tests/test_torch_batched_backends.py::compare_batches, float64: every
-    lane's status, iterations, objective and iterates)."""
+    """The cases keep the ids of the paths that once raised naming their
+    ROADMAP.md item.  mesh= (item 17) is ported: a mesh that is not a
+    torch.distributed DeviceMesh raises TypeError (tests/test_torch_mesh.py
+    runs the sharded batch).  The item-18 cases raised until every dense
+    KKT backend had a batched form; now each solves as the reference's
+    vmapped solver does (tests/test_torch_batched_backends.py::
+    compare_batches, float64: every lane's status, iterations, objective
+    and iterates)."""
     if item == "item 17":
         qps = [mt.dense_dummy_qp(6, 3, seed=i) for i in range(2)]
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             BatchedMPCSolver.from_problems(qps, device="cpu", print_level=40, **kwargs)
         return
     from test_torch_batched_backends import _qps, compare_batches

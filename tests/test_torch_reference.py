@@ -68,6 +68,13 @@ the headline options (float32 factorization, one refinement step):
     (2500^2) takes the panel Cholesky with K8 (phase 19).  Each batch is
     stored with its generator, keywords, seeds and runs, and each run with
     its options and the CPU seconds of the write run.
+  * mesh: the JAX package's sharded solves on the CPU mesh at
+    benchmarks/multihost.py's sizes (MESH_RUNS): batched, 16 x
+    dense_dummy_qp(32, 16) with the lanes over 4 devices; schur,
+    random_two_stage(n0=16, ns=12, ms=8, m0=4, N=16, seed=0) with the
+    scenarios over 4 devices; default options: status, iterations,
+    objective (tools/multihost_torch.py holds the port to them;
+    tests/test_torch_multihost.py recomputes them).
 The card's machine has no JAX, so the smoke reads them from the file; this
 test regenerates them on the CPU and asserts the committed file still
 holds them.
@@ -582,6 +589,41 @@ def batched_backends_reference(batches=tuple(BACKEND_BATCHES), lanes=None, only=
     return out
 
 
+# benchmarks/multihost.py's problems at its sizes over 4 devices.
+MESH_DEVICES = 4
+MESH_RUNS = {
+    "batched": dict(generator="dense_dummy_qp", kwargs=dict(n=32, m=16), seeds=list(range(16)),
+                    options=dict(print_level=40)),
+    "schur": dict(problem=dict(n0=16, ns=12, ms=8, m0=4, N=16, seed=0, qp=True),
+                  options=dict(print_level=40)),
+}
+
+
+def mesh_reference():
+    """The reference's sharded solves of MESH_RUNS on a mesh of
+    MESH_DEVICES CPU devices (status, iterations, objective; per lane for
+    the batch)."""
+    import jax
+
+    from madqp_tpu.parallel import BatchedMPCSolver, random_two_stage, solve_two_stage
+
+    assert len(jax.devices()) >= MESH_DEVICES, "needs XLA_FLAGS=--xla_force_host_platform_device_count=8"
+    run = MESH_RUNS["batched"]
+    qps = [getattr(mq, run["generator"])(seed=s, **run["kwargs"]) for s in run["seeds"]]
+    stats = BatchedMPCSolver.from_problems(
+        qps, mesh=jax.make_mesh((MESH_DEVICES,), ("batch",)), **run["options"]).solve_all()
+    rows = [_record(st) for st in stats]
+    out = {"devices": MESH_DEVICES,
+           "batched": dict(run, **{key: [r[key] for r in rows]
+                                   for key in ("status", "iter", "objective")})}
+    run = MESH_RUNS["schur"]
+    prob, lb, ub = random_two_stage(**run["problem"])
+    st = solve_two_stage(prob, lb, ub, mesh=jax.make_mesh((MESH_DEVICES,), ("scen",)),
+                         **run["options"])
+    out["schur"] = dict(run, **_record(st))
+    return out
+
+
 def generate_reference():
     return {**dense_reference(), "batched512": batched_reference(range(BATCH)),
             "qp_layer64": layer_reference(), "two_stage_1024": two_stage_reference(),
@@ -592,7 +634,7 @@ def generate_reference():
             "augmented_xlarge": augmented_xlarge_reference(),
             "condensed_xlarge": condensed_xlarge_reference(),
             "sparse_batched": sparse_batched_reference(),
-            "batched_backends": batched_backends_reference()}
+            "batched_backends": batched_backends_reference(), "mesh": mesh_reference()}
 
 
 def _flatten(ref):
@@ -733,6 +775,10 @@ def test_committed_batched_backends_match_jax():
 
 
 if __name__ == "__main__":
+    # the mesh entry's 4 devices (tests/conftest.py gives the tests 8)
+    if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                                   + " --xla_force_host_platform_device_count=8").strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -745,7 +791,8 @@ if __name__ == "__main__":
                   "augmented_xlarge": augmented_xlarge_reference,
                   "condensed_xlarge": condensed_xlarge_reference,
                   "sparse_batched": sparse_batched_reference,
-                  "batched_backends": batched_backends_reference}
+                  "batched_backends": batched_backends_reference,
+                  "mesh": mesh_reference}
         ref = json.loads(REF_PATH.read_text())
         ref.update({k: makers[k]() for k in keys})
     else:

@@ -3,9 +3,9 @@ against the JAX package's `solve_sparse_batched`.
 
 The cases of tests/test_sparse_batched.py at its sizes (n <= 120): the LP
 against the reference's batch, the separable QP on the normal equations and
-a general QP on the augmented system, the two-phase float32 scheme (whose
-mesh half asserts the port's NotImplementedError), ragged patterns
-rejected and the pattern cache reused across values.  Per lane: status;
+a general QP on the augmented system, the two-phase float32 scheme (its
+mesh half is tests/test_torch_mesh_sparse.py's; here a mesh that is not a
+DeviceMesh raises TypeError), ragged patterns rejected and the pattern cache reused across values.  Per lane: status;
 iterations equal in float64, within ITER_BAND where a float32 phase runs
 (ROADMAP.md Queue 3: which float32 trials pass follows the LAPACK build);
 objective to 1e-8 relative; x, y, zl and zu to 1e-6.  Each lane of the
@@ -115,7 +115,10 @@ def test_lanes_equal_single_solves(case):
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 17"):
+    """mesh= is ported (tests/test_torch_mesh_sparse.py runs it over
+    ranks); a mesh that is not a torch.distributed DeviceMesh raises
+    TypeError."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         mt.solve_sparse_batched(problems(mt, "two-phase"), mesh=object(), device="cpu")
 
 

@@ -194,7 +194,9 @@ def test_matches_flat_dense_oracle(name):
 
 
 def test_mesh_raises_naming_the_roadmap_item():
+    """mesh= is ported (tests/test_torch_mesh.py runs it over ranks); a mesh
+    that is not a torch.distributed DeviceMesh raises TypeError."""
     tp, tlb, tub = torch_problem("qp")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         mt.solve_two_stage(tp, tlb, tub, mesh=object(), device="cpu")
 
