@@ -1,0 +1,11 @@
+"""Settings of the benchmark's own tests (run with
+`python -m pytest qpbench/tests -q`; they import no JAX)."""
+
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs a CUDA device (skips without one)")
