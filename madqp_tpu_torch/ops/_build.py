@@ -13,10 +13,16 @@ fixed: a debug or fast-math build can never be cached under the release
 build's name.  They include `-Xptxas -v`, which changes no code: ptxas's
 report of each kernel's registers, shared memory and spills is kept beside
 the library (`build_log`).
+
+`build.builds` counts the compiler runs of the process by source file
+name (the benchmark's set-up readers warn when set-up ran the compiler);
+each first load of a library is the span `kernel.load` of
+`utils.profiling`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -25,6 +31,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from ..utils.profiling import span
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -110,6 +118,7 @@ def build(source: Path) -> Path:
     os.close(fd)
     compiler = gxx() if source.suffix == ".cpp" else nvcc()
     cmd = [compiler, *_flags(source), "-o", tmp, str(source)]
+    build.builds[source.name] += 1
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -124,6 +133,9 @@ def build(source: Path) -> Path:
     return out
 
 
+build.builds = collections.Counter()
+
+
 def load(source: Path, signatures: dict, check=None) -> ctypes.CDLL:
     """Build `source` if needed and load it once per process.
 
@@ -134,12 +146,13 @@ def load(source: Path, signatures: dict, check=None) -> ctypes.CDLL:
     kept."""
     lib = _loaded.get(source)
     if lib is None:
-        lib = ctypes.CDLL(str(build(source)))
-        for name, (argtypes, restype) in signatures.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = restype
-        if check is not None:
-            check(lib)
+        with span("kernel.load", source.name):
+            lib = ctypes.CDLL(str(build(source)))
+            for name, (argtypes, restype) in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
+            if check is not None:
+                check(lib)
         _loaded[source] = lib
     return lib

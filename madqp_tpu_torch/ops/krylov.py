@@ -10,7 +10,8 @@ the preconditioned spectrum clustered, not the contraction
 residual-check / refinement seam of src/linear_solver.jl:28-43.
 
 The loop is stepped on the host: the stopping test (the reference's
-`lax.while_loop` condition) is read once per CG iteration, one sync each.
+`lax.while_loop` condition) is read once per CG iteration, one sync each
+(`utils.profiling.to_host`, site `pcg`).
 A fixed `maxit`-iteration loop that froze the converged state would give
 the same result without syncs, but would run the preconditioner (a whole
 supernodal backsolve, hundreds of launches) `maxit` times whatever the
@@ -20,6 +21,8 @@ convergence; CG converges here in a few iterations.
 from __future__ import annotations
 
 import torch
+
+from ..utils.profiling import to_host
 
 
 def pcg(matvec, precond, b: torch.Tensor, tol_rel: float = 1e-12, maxit: int = 64):
@@ -33,7 +36,7 @@ def pcg(matvec, precond, b: torch.Tensor, tol_rel: float = 1e-12, maxit: int = 6
     x, r, p = torch.zeros_like(b), b, z
     rz = torch.dot(b, z)
     k = 0
-    while k < maxit and bool(torch.dot(r, r) > (tol_rel * tol_rel) * r0n):
+    while k < maxit and to_host(torch.dot(r, r) > (tol_rel * tol_rel) * r0n, "pcg"):
         Ap = matvec(p)
         pAp = torch.dot(p, Ap)
         alpha = rz / torch.where(pAp != 0.0, pAp, torch.ones_like(pAp))

@@ -55,6 +55,7 @@ from ..utils import (
 )
 from ..utils.logger import INFO
 from ..utils.options import IPMOptions, KKTSystem
+from ..utils.profiling import span, to_host
 from . import state as S
 from .certificates import certify_exit_status
 from .mpc import MPCKernel
@@ -99,9 +100,17 @@ class MPCSolver:
     `device` places the problem and the iterates: the CUDA card unless the
     caller asks for "cpu" (without a card the default raises torch's own
     error; nothing falls back to the host).  Every other keyword is a
-    solver option (utils.options.IPMOptions)."""
+    solver option (utils.options.IPMOptions).
+
+    The construction is the span `construct` and each `solve()` the span
+    `solve` of `utils.profiling`; the reads of the final state after the
+    loop are its host reads at site `finish`."""
 
     def __init__(self, qp: QuadraticProblem, *, device="cuda", **kwargs):
+        with span("construct"):
+            self._construct(qp, device, kwargs)
+
+    def _construct(self, qp: QuadraticProblem, device, kwargs: dict):
         self.qp = qp
         self.device = torch.device(device)
         opts, ignored = load_options(**kwargs)
@@ -288,6 +297,10 @@ class MPCSolver:
 
     def solve(self, **kwargs) -> ExecutionStats:
         """Run the solve (reference solve!, src/solver.jl:347-403)."""
+        with span("solve"):
+            return self._solve(kwargs)
+
+    def _solve(self, kwargs: dict) -> ExecutionStats:
         if self._construct_error is not None:
             status = self._construct_error.status
             self.logger.notice(f"EXIT: {get_status_output(status)}")
@@ -345,7 +358,8 @@ class MPCSolver:
                 # when the terminal direction is a Farkas certificate /
                 # descent ray.
                 status = certify_exit_status(
-                    self.std, _to_numpy(final.x), _to_numpy(final.y), status)
+                    self.std, to_host(final.x, "finish", numpy=True),
+                    to_host(final.y, "finish", numpy=True), status)
         except MadQPError as e:
             status = e.status
             if self.opts.rethrow_error:
@@ -357,11 +371,11 @@ class MPCSolver:
                 sign = 1.0 if self.info.minimize else -1.0
                 self.logger.print_summary(
                     iter=final.k,
-                    objective=sign * float(final.obj_val) / self.info.obj_scale,
-                    objective_scaled=float(final.obj_val),
-                    inf_pr=float(final.inf_pr),
-                    inf_du=float(final.inf_du),
-                    inf_compl=float(final.inf_compl),
+                    objective=sign * to_host(final.obj_val, "finish") / self.info.obj_scale,
+                    objective_scaled=to_host(final.obj_val, "finish"),
+                    inf_pr=to_host(final.inf_pr, "finish"),
+                    inf_du=to_host(final.inf_du, "finish"),
+                    inf_compl=to_host(final.inf_compl, "finish"),
                     total_time=cnt.total_time,
                     init_time=cnt.init_time,
                     linear_solver_time=(
@@ -550,10 +564,10 @@ class MPCSolver:
         cnt.factorizations = final.n_fact
         cnt.backsolves = final.n_solve
 
-        x_int = _to_numpy(final.x)[: info.n]
-        y_int = _to_numpy(final.y)[: info.m]
-        zl_int = _to_numpy(final.zl)[: info.n]
-        zu_int = _to_numpy(final.zu)[: info.n]
+        x_int = to_host(final.x, "finish", numpy=True)[: info.n]
+        y_int = to_host(final.y, "finish", numpy=True)[: info.m]
+        zl_int = to_host(final.zl, "finish", numpy=True)[: info.n]
+        zu_int = to_host(final.zu, "finish", numpy=True)[: info.n]
 
         x_user = info.recover_x(x_int)
         y_user = info.recover_y(y_int)
@@ -578,9 +592,9 @@ class MPCSolver:
             multipliers_U=zu_user,
             iter=final.k,
             counters=cnt,
-            primal_feas=float(final.inf_pr),
-            dual_feas=float(final.inf_du),
-            complementarity=float(final.inf_compl),
+            primal_feas=to_host(final.inf_pr, "finish"),
+            dual_feas=to_host(final.inf_du, "finish"),
+            complementarity=to_host(final.inf_compl, "finish"),
             options=self.opts,
         )
 

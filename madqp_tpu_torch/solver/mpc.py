@@ -9,9 +9,13 @@ into one XLA program (`lax.while_loop`, `lax.scan`, `lax.switch`,
 
   * the retry loop, the phase sequence, the work/finish branch and the
     MPC loop itself are host loops and branches;
-  * each host decision reads its scalars with one device sync: the
-    termination/stall flags once per iteration, `factor_ok` once per
-    factorization trial, the direction's failure flag once per iteration;
+  * each host decision reads its scalars with one device sync
+    (`utils.profiling.to_host`): the termination/stall flags once per
+    iteration, `factor_ok` once per factorization trial, the direction's
+    failure flag once per iteration;
+  * the spans `iter`, `iter.residuals`, `iter.factorize` (one per trial),
+    `iter.direction` and `iter.step` mark the iteration's phases for
+    `utils.profiling` (no-ops unless it is enabled);
   * everything else (ratio tests, Gondzio acceptance, step lengths) stays
     in 0-d tensors on the device, selected with `torch.where`.
 
@@ -43,6 +47,7 @@ from ..utils.options import (
     MehrotraAdaptiveStep,
     NoRegularization,
 )
+from ..utils.profiling import span, to_host
 from .state import (
     DIVERGED,
     IPMState,
@@ -140,12 +145,13 @@ class MPCKernel:
         Returns (factors, del_w, del_c, ok) with `ok` a host bool."""
         dw, dc = del_w, del_c
         for trial in range(_MAX_FACT_TRIALS):
-            if trial > 0:
-                dw = torch.where(dw != 0.0, dw * _REG_ESCALATION, 1e-8)
-                dc = torch.where(dc != 0.0, dc * _REG_ESCALATION, -1e-8)
-            f, ok = self._factorize(p, x, lb, ub, zl, zu, dw, dc)
-            if ok.item():
-                return f, dw, dc, True
+            with span("iter.factorize"):
+                if trial > 0:
+                    dw = torch.where(dw != 0.0, dw * _REG_ESCALATION, 1e-8)
+                    dc = torch.where(dc != 0.0, dc * _REG_ESCALATION, -1e-8)
+                f, ok = self._factorize(p, x, lb, ub, zl, zu, dw, dc)
+                if to_host(ok, "factor_ok"):
+                    return f, dw, dc, True
         return f, dw, dc, False
 
     def solve_system(self, p, factors, p_rhs, x, lb, ub, zl, zu, del_w, del_c):
@@ -347,12 +353,17 @@ class MPCKernel:
         return state, g, c_res, jacl, worst, primal_infeas | dual_infeas
 
     def iteration(self, p: ProblemArrays, state: IPMState) -> IPMState:
-        state, g, c_res, jacl, worst, diverged = self._residuals(p, state)
-        initialized = state.initialized
-        improved = worst < 0.9 * state.best_worst
-        # One device sync for every termination decision of this iteration.
-        converged, diverged, improved = torch.stack(
-            [worst <= self.opts.tol, diverged, improved]).tolist()
+        with span("iter", state.k):
+            return self._iteration(p, state)
+
+    def _iteration(self, p: ProblemArrays, state: IPMState) -> IPMState:
+        with span("iter.residuals"):
+            state, g, c_res, jacl, worst, diverged = self._residuals(p, state)
+            initialized = state.initialized
+            improved = worst < 0.9 * state.best_worst
+            # One device sync for every termination decision of this iteration.
+            converged, diverged, improved = to_host(torch.stack(
+                [worst <= self.opts.tol, diverged, improved]), "termination")
         if converged:
             new_status = SUCCESS
         elif diverged:
@@ -399,14 +410,16 @@ class MPCKernel:
         factors, del_w, del_c, fact_ok = self.factorize_with_retry(
             p, state.x, state.lb, state.ub, state.zl, state.zu, del_w, del_c
         )
-        d, mu_new, dir_failed = self._direction(
-            p, state, factors, g, jacl, c_res, del_w, del_c)
+        with span("iter.direction"):
+            d, mu_new, dir_failed = self._direction(
+                p, state, factors, g, jacl, c_res, del_w, del_c)
         regs = (del_w, del_c, reg_p, reg_d)
-        if not state.initialized:
-            return self._starting_point(p, state, g, d, *regs)
-        if not fact_ok or dir_failed.item():
-            return state._replace(status=STEP_ERROR)
-        return self._advance(p, state, d, mu_new, *regs)
+        with span("iter.step"):
+            if not state.initialized:
+                return self._starting_point(p, state, g, d, *regs)
+            if not fact_ok or to_host(dir_failed, "dir_failed"):
+                return state._replace(status=STEP_ERROR)
+            return self._advance(p, state, d, mu_new, *regs)
 
     def _starting_point(self, p, state: IPMState, g, d, del_w, del_c,
                         reg_p, reg_d) -> IPMState:
@@ -571,44 +584,53 @@ class BatchedMPCKernel(MPCKernel):
         whole batch and keeps the new factor only in the retried lanes.
         Returns (factors, del_w, del_c, ok) with ok (B,) on the device."""
         dw, dc = del_w, del_c
-        f, ok = self._factorize(p, x, lb, ub, zl, zu, dw, dc)
+        with span("iter.factorize"):
+            f, ok = self._factorize(p, x, lb, ub, zl, zu, dw, dc)
         for _ in range(1, _MAX_FACT_TRIALS):
             retry = active & ~ok
-            if not bool(retry.any()):
+            if not to_host(retry.any(), "retry"):
                 break
-            dw = torch.where(retry, torch.where(dw != 0.0, dw * _REG_ESCALATION, 1e-8), dw)
-            dc = torch.where(retry, torch.where(dc != 0.0, dc * _REG_ESCALATION, -1e-8), dc)
-            f_new, ok_new = self._factorize(p, x, lb, ub, zl, zu, dw, dc)
-            f = select_lanes(retry, f_new, f)
-            ok = torch.where(retry, ok_new, ok)
+            with span("iter.factorize"):
+                dw = torch.where(retry, torch.where(dw != 0.0, dw * _REG_ESCALATION, 1e-8), dw)
+                dc = torch.where(retry, torch.where(dc != 0.0, dc * _REG_ESCALATION, -1e-8), dc)
+                f_new, ok_new = self._factorize(p, x, lb, ub, zl, zu, dw, dc)
+                f = select_lanes(retry, f_new, f)
+                ok = torch.where(retry, ok_new, ok)
         return f, dw, dc, ok
 
     def iteration(self, p: ProblemArrays, state: IPMState) -> IPMState:
-        state, g, c_res, jacl, worst, diverged = self._residuals(p, state)
-        opt = self.opts
-        if state.initialized:
-            new_status = torch.where(
-                worst <= opt.tol, SUCCESS,
-                torch.where(diverged, DIVERGED,
-                            torch.where(state.k >= opt.max_iter, MAX_ITER, RUNNING)))
-        else:
-            new_status = self._counter(p, RUNNING)
-        if opt.stall_exit > 0:
-            if state.initialized:
-                stall_k = torch.where(worst < 0.9 * state.best_worst, 0,
-                                      state.stall_k + 1)
-                best = torch.minimum(worst, state.best_worst)
-            else:
-                stall_k, best = self._counter(p), state.best_worst
-            new_status = torch.where(
-                (new_status == RUNNING) & (stall_k >= opt.stall_exit),
-                STALLED, new_status)
-            state = state._replace(best_worst=best, stall_k=stall_k)
+        with span("iter"):
+            return self._iteration(p, state)
 
-        running = state.status == RUNNING
-        finished = state._replace(status=torch.where(running, new_status, state.status))
-        work = running & (new_status == RUNNING)
-        if not bool(work.any()):  # one sync: the last call factors nothing
+    def _iteration(self, p: ProblemArrays, state: IPMState) -> IPMState:
+        with span("iter.residuals"):
+            state, g, c_res, jacl, worst, diverged = self._residuals(p, state)
+            opt = self.opts
+            if state.initialized:
+                new_status = torch.where(
+                    worst <= opt.tol, SUCCESS,
+                    torch.where(diverged, DIVERGED,
+                                torch.where(state.k >= opt.max_iter, MAX_ITER, RUNNING)))
+            else:
+                new_status = self._counter(p, RUNNING)
+            if opt.stall_exit > 0:
+                if state.initialized:
+                    stall_k = torch.where(worst < 0.9 * state.best_worst, 0,
+                                          state.stall_k + 1)
+                    best = torch.minimum(worst, state.best_worst)
+                else:
+                    stall_k, best = self._counter(p), state.best_worst
+                new_status = torch.where(
+                    (new_status == RUNNING) & (stall_k >= opt.stall_exit),
+                    STALLED, new_status)
+                state = state._replace(best_worst=best, stall_k=stall_k)
+
+            running = state.status == RUNNING
+            finished = state._replace(status=torch.where(running, new_status, state.status))
+            work = running & (new_status == RUNNING)
+            # one sync: the last call factors nothing
+            any_work = to_host(work.any(), "work")
+        if not any_work:
             return finished
         return select_lanes(work, self._work(p, state, g, c_res, jacl, work),
                             finished)
@@ -618,11 +640,13 @@ class BatchedMPCKernel(MPCKernel):
         factors, del_w, del_c, fact_ok = self.factorize_with_retry(
             p, state.x, state.lb, state.ub, state.zl, state.zu, del_w, del_c,
             active)
-        d, mu_new, dir_failed = self._direction(
-            p, state, factors, g, jacl, c_res, del_w, del_c)
+        with span("iter.direction"):
+            d, mu_new, dir_failed = self._direction(
+                p, state, factors, g, jacl, c_res, del_w, del_c)
         regs = (del_w, del_c, reg_p, reg_d)
-        if not state.initialized:
-            return self._starting_point(p, state, g, d, *regs)
-        return select_lanes(~fact_ok | dir_failed,
-                            state._replace(status=self._counter(p, STEP_ERROR)),
-                            self._advance(p, state, d, mu_new, *regs))
+        with span("iter.step"):
+            if not state.initialized:
+                return self._starting_point(p, state, g, d, *regs)
+            return select_lanes(~fact_ok | dir_failed,
+                                state._replace(status=self._counter(p, STEP_ERROR)),
+                                self._advance(p, state, d, mu_new, *regs))

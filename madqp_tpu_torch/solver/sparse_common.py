@@ -33,6 +33,7 @@ import scipy.sparse as sp
 import torch
 
 from ..ops import kernels as K
+from ..utils.profiling import span
 from . import state as S
 from .mpc import MPCKernel
 
@@ -130,18 +131,20 @@ def get_sparse_kernel(kind: str, fingerprint: str, opts, make_kkt):
     """Return (kkt, kernel) for this (kind, pattern, options), building the
     KKT with make_kkt() on a miss.  The KKT keeps its symbolic index lists
     (host arrays, and a copy per device made at first use), so a problem
-    with the same sparsity and other values skips the symbolic work."""
+    with the same sparsity and other values skips the symbolic work.  The
+    lookup is the span `construct.kkt`, its value True on a miss."""
     key = (kind, fingerprint, opts)
     hit = _KERNEL_CACHE.get(key)
-    if hit is not None:
-        _KERNEL_CACHE.move_to_end(key)
+    with span("construct.kkt", hit is None):
+        if hit is not None:
+            _KERNEL_CACHE.move_to_end(key)
+            return hit
+        kkt = make_kkt()
+        hit = (kkt, MPCKernel(opts, kkt=kkt))
+        _KERNEL_CACHE[key] = hit
+        while len(_KERNEL_CACHE) > _KERNEL_CACHE_SIZE:
+            _KERNEL_CACHE.popitem(last=False)
         return hit
-    kkt = make_kkt()
-    hit = (kkt, MPCKernel(opts, kkt=kkt))
-    _KERNEL_CACHE[key] = hit
-    while len(_KERNEL_CACHE) > _KERNEL_CACHE_SIZE:
-        _KERNEL_CACHE.popitem(last=False)
-    return hit
 
 
 def stepped_solve(kernel, prob, x0, y0, lb, ub, warm=None):

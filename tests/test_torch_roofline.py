@@ -3,8 +3,8 @@
 
 The schedule and dense models equal the reference's on the same patterns;
 `chip_peaks` off the card gives NaN peaks, from a module that imports no
-jax; `time_solve_stages` returns its stages for small CPU solves (dense and
-sparse); and chip_smoke.py's bound helpers, which now take their counts and
+jax; `device_profile` counts the card's busy time as a union of intervals;
+and chip_smoke.py's bound helpers, which now take their counts and
 peaks from roofline.py, give the numbers of their earlier inline formulas
 (67 TFLOP/s, 3.35 TB/s) at the shapes PERF.md section 6 reports.
 """
@@ -19,7 +19,6 @@ import pytest
 import torch
 
 import madqp_tpu as mq
-import madqp_tpu_torch as mt
 from madqp_tpu.ops import sparse_chol as J
 from madqp_tpu.utils import roofline as JR
 from madqp_tpu_torch.ops import sparse_chol as T
@@ -124,21 +123,12 @@ def test_chip_smoke_bounds_unchanged():
                 == old_bound(ops, (2 * r * c + r * k) * size))
 
 
-@pytest.mark.parametrize("kw", [dict(), dict(kkt_system="sparse-normal")],
-                         ids=["dense", "sparse-normal"])
-def test_time_solve_stages_on_the_cpu(kw):
-    solver = mt.MPCSolver(mt.banded_sparse_lp(120, 60, band=4, seed=1), device="cpu",
-                          print_level=40, **kw)
-    st = TP.time_solve_stages(solver, reps=2)
-    assert set(st) == {"symbolic_s", "setup_s", "init_s", "solve_s", "sync_s", "syncs",
-                       "iters", "s_per_iter"}
-    assert st["iters"] == solver.solve().iter > 0
-    assert 0 < st["init_s"] < st["solve_s"] and 0 <= st["sync_s"] < st["solve_s"]
-    # at least the termination flags' read per iteration
-    assert st["syncs"] >= st["iters"]
-    assert (st["symbolic_s"] > 0) == bool(kw)
-    # the tensor methods are restored
-    assert torch.ones(()).item() == 1.0 and torch.Tensor.item.__name__ == "item"
+def test_device_profile_busy_is_a_union():
+    """Two overlapping device intervals count once in the busy time, as
+    `qpbench/trace.py::union_seconds` counts them."""
+    assert TP.union_ns([(0, 10), (5, 20)]) == 20
+    assert TP.union_ns([(30, 40), (0, 10), (5, 20), (40, 45)]) == 35
+    assert TP.union_ns([]) == 0
 
 
 def test_device_profile_and_trace_on_the_cpu(tmp_path):
