@@ -52,7 +52,7 @@ import torch
 
 from .blocked_dense import blocked_ldl, inv_unit_lower
 from .pallas_chol import cholesky_lower_routed
-from ..solver.sparse_common import segment_sum
+from ..solver.sparse_common import lengths_tensor, segment_sum
 
 
 class ScheduleTooLargeError(RuntimeError):
@@ -941,10 +941,11 @@ def device_schedule(bs: "BucketedSymbolic", device) -> _DeviceSchedule:
             np.concatenate(srcs).astype(np.int64), np.concatenate(dsts).astype(np.int64),
             scratch)
         b_order, b_uniq, b_len = _below_index(below)
-        return _Step(count=count, w_pad=w_pad, u_pad=u_pad, src=t(src), seg_len=t(seg_len),
-                     udst=t(udst), upd_from=t(upd_from), upd_to=t(upd_to), carry=carry,
-                     cols=t(cols), below=t(below), b_order=t(b_order), b_uniq=t(b_uniq),
-                     b_len=t(b_len))
+        return _Step(count=count, w_pad=w_pad, u_pad=u_pad, src=t(src),
+                     seg_len=lengths_tensor(seg_len, src.size, device), udst=t(udst),
+                     upd_from=t(upd_from), upd_to=t(upd_to), carry=carry, cols=t(cols),
+                     below=t(below), b_order=t(b_order), b_uniq=t(b_uniq),
+                     b_len=lengths_tensor(b_len, b_order.size, device))
 
     items, chain_init = [], []
     for it in bs.schedule:
@@ -1163,7 +1164,7 @@ def _forward(x, st: _Step, P, n, unit, inverse):
     if st.u_pad:
         y = (P[:, w:, :] @ xj[..., None])[..., 0].reshape(lanes + (-1,))
         x[..., st.b_uniq] = x[..., st.b_uniq] - segment_sum(y[..., st.b_order], st.b_len)
-    x[..., n] = 0.0
+    x[..., n].zero_()
 
 
 def _backward(x, st: _Step, P, n, unit, inverse):
@@ -1180,7 +1181,7 @@ def _backward(x, st: _Step, P, n, unit, inverse):
         xj = torch.linalg.solve_triangular(P[:, :w, :].mT, rhs[..., None], upper=True,
                                            unitriangular=unit)[..., 0]
     x[..., st.cols.reshape(-1)] = xj.reshape(lanes + (-1,))
-    x[..., n] = 0.0
+    x[..., n].zero_()
 
 
 def _solve(bs, panels, b, inverse, unit=False, dglob=None):

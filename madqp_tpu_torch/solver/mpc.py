@@ -17,7 +17,13 @@ into one XLA program (`lax.while_loop`, `lax.scan`, `lax.switch`,
     `iter.direction` and `iter.step` mark the iteration's phases for
     `utils.profiling` (no-ops unless it is enabled);
   * everything else (ratio tests, Gondzio acceptance, step lengths) stays
-    in 0-d tensors on the device, selected with `torch.where`.
+    in 0-d tensors on the device, selected with `torch.where`;
+  * a single solve on a card whose KKT declares its direction capturable
+    (`capturable_direction`, the sparse augmented system) replays the
+    direction after the starting point as one CUDA graph
+    (`DirectionGraph`): one launch in place of the thousands of its
+    operations.  The span `iter.direction` holds the route ("eager",
+    "capture", "replay"), and `MPCKernel.directions` counts them.
 
 `BatchedMPCKernel` runs the same iteration over a batch of problems
 (leading lane axis), lane-masked: it reproduces what `jax.vmap` makes of
@@ -33,6 +39,8 @@ iterate with status STEP_ERROR.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -93,6 +101,96 @@ def select_lanes(pred: torch.Tensor, a, b):
         pred.view(pred.shape + (1,) * (u.dim() - pred.dim())), u, v), a, b)
 
 
+def _leaves(tree) -> list:
+    """The leaves of a `tree_map` tree in its order: tensors and the other
+    fields (None, numbers) alike."""
+    if isinstance(tree, (tuple, list)):
+        return [leaf for field in tree for leaf in _leaves(field)]
+    return [tree]
+
+
+def _signature(leaves) -> tuple:
+    """What a captured graph depends on besides the tensors' values: each
+    tensor's shape, strides, dtype, device and host-kept segment total
+    (`sparse_common.lengths_tensor`), and every other leaf as it is."""
+    return tuple((t.shape, t.stride(), t.dtype, t.device, getattr(t, "segment_total", None))
+                 if isinstance(t, torch.Tensor) else t for t in leaves)
+
+
+def _slot(t: torch.Tensor) -> torch.Tensor:
+    """A static input slot: a copy of `t` that keeps its Python attributes
+    (a segment length's total)."""
+    slot = t.clone()
+    slot.__dict__.update(t.__dict__)
+    return slot
+
+
+class DirectionGraph:
+    """`MPCKernel._direction` after the starting point as one CUDA graph,
+    captured once and replayed at every later iteration (one per kernel,
+    so one per pattern on the sparse paths).
+
+    The graph reads static input slots: each call copies its inputs in
+    (the problem, the iterate's x, zl, zu, lb and ub, the factors, g, jacl,
+    c_res, del_w and del_c) and replays.  Inputs that differ from the
+    captured ones in anything but their values (`_signature`) are captured
+    anew.  The outputs are the graph's own tensors, which the next replay
+    overwrites: the direction and the barrier, which the new state keeps,
+    are returned as copies, the failure flag (read at once) as it is.
+
+    The capture follows `torch.cuda.graph`: one eager run on the capture
+    stream first, so that its cuBLAS handle and workspace exist, then the
+    capture on that stream."""
+
+    def __init__(self, kernel: "MPCKernel"):
+        self.kernel = kernel
+        self.signature = None
+        self.graph = self.slots = self.out = None
+
+    @staticmethod
+    def _inputs(p, state, factors, g, jacl, c_res, del_w, del_c):
+        return (p, (state.x, state.zl, state.zu, state.lb, state.ub), factors, g, jacl,
+                c_res, del_w, del_c)
+
+    def route(self, *args) -> str:
+        """"replay", or "capture" where the graph does not fit these inputs."""
+        fits = _signature(_leaves(self._inputs(*args))) == self.signature
+        return "replay" if fits else "capture"
+
+    def __call__(self, p, state, *args):
+        inputs = self._inputs(p, state, *args)
+        leaves = _leaves(inputs)
+        signature = _signature(leaves)
+        if signature != self.signature:
+            self._capture(state, inputs, signature)
+        for slot, t in zip(self.slots, leaves):
+            if isinstance(t, torch.Tensor):
+                slot.copy_(t)
+        self.graph.replay()
+        d, mu_new, failed = self.out
+        return K.KKTVec(*(v.clone() for v in d)), mu_new.clone(), failed
+
+    def _run(self, state, p, bounds, *args):
+        x, zl, zu, lb, ub = bounds
+        return self.kernel._direction(
+            p, state._replace(x=x, zl=zl, zu=zu, lb=lb, ub=ub), *args)
+
+    def _capture(self, state, inputs, signature):
+        self.graph = self.slots = self.out = None   # the old graph's memory first
+        device = state.x.device
+        slots = tree_map(_slot, inputs)
+        stream = torch.cuda.Stream(device=device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            self._run(state, *slots)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = self._run(state, *slots)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.graph, self.out, self.signature = graph, out, signature
+        self.slots = _leaves(slots)
+
+
 class MPCKernel:
     """MPC solver core: static options + methods over problem tensors."""
 
@@ -108,6 +206,10 @@ class MPCKernel:
         )
         self.dtype = torch_dtype(opts.dtype)
         self.eps = torch.finfo(self.dtype).eps
+        # single solves' directions by route ("eager", "capture", "replay";
+        # `_work`), and the replayed direction (`_direction_graph`)
+        self.directions = collections.Counter()
+        self._graph: "DirectionGraph | None" = None
 
     def _scalar(self, p: ProblemArrays, value) -> torch.Tensor:
         return torch.tensor(value, dtype=self.dtype, device=p.c.device)
@@ -405,14 +507,29 @@ class MPCKernel:
             return self._update_regularization(p, state)
         return state.del_w, state.del_c, state.reg_p, state.reg_d
 
+    def _direction_graph(self, state: IPMState) -> "DirectionGraph | None":
+        """The kernel's `DirectionGraph` where the direction is replayed:
+        after the starting point, on a card, with a KKT that declares its
+        direction capturable (`capturable_direction`: nothing in it reads
+        back to the host).  None where it runs eagerly."""
+        if not (state.initialized and state.x.is_cuda
+                and getattr(self.kkt, "capturable_direction", False)):
+            return None
+        if self._graph is None:
+            self._graph = DirectionGraph(self)
+        return self._graph
+
     def _work(self, p, state: IPMState, g, c_res, jacl) -> IPMState:
         del_w, del_c, reg_p, reg_d = self._work_regularization(p, state)
         factors, del_w, del_c, fact_ok = self.factorize_with_retry(
             p, state.x, state.lb, state.ub, state.zl, state.zu, del_w, del_c
         )
-        with span("iter.direction"):
-            d, mu_new, dir_failed = self._direction(
-                p, state, factors, g, jacl, c_res, del_w, del_c)
+        args = (p, state, factors, g, jacl, c_res, del_w, del_c)
+        graph = self._direction_graph(state)
+        route = "eager" if graph is None else graph.route(*args)
+        self.directions[route] += 1
+        with span("iter.direction", route):
+            d, mu_new, dir_failed = (self._direction if graph is None else graph)(*args)
         regs = (del_w, del_c, reg_p, reg_d)
         with span("iter.step"):
             if not state.initialized:

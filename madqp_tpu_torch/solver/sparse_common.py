@@ -67,6 +67,22 @@ def pattern_fingerprint(A: sp.spmatrix,
     return h.hexdigest()
 
 
+def lengths_tensor(lengths, total: int, device) -> torch.Tensor:
+    """The segment lengths of a sum over `total` values as an int64 tensor
+    on `device`, checked where the index lists are built (none negative,
+    and they add up to `total`; ValueError otherwise), their total kept
+    beside them on the host (the tensor's `segment_total`): `segment_sum`
+    checks each call against it without reading the device."""
+    lengths = np.asarray(lengths, np.int64)
+    if lengths.size and lengths.min() < 0:
+        raise ValueError(f"segment lengths hold a negative count ({lengths.min()})")
+    if int(lengths.sum()) != total:
+        raise ValueError(f"segment lengths add up to {int(lengths.sum())}, not {total}")
+    t = torch.as_tensor(lengths, device=device)
+    t.segment_total = int(total)
+    return t
+
+
 def segments(index: np.ndarray, size: int):
     """(order, lengths) for a deterministic segment sum by `index`: a stable
     sort of the entries by segment, and the entry count of each of the
@@ -85,7 +101,19 @@ def segment_sum(values: torch.Tensor, lengths: torch.Tensor,
     `segments`' (order, lengths) as tensors on the values' device (order
     None: `values` is already in segment order); an empty segment gives 0.
     Leading axes are lanes (a batch of instances sharing the index lists):
-    each lane's sums are taken in the order of a single instance's."""
+    each lane's sums are taken in the order of a single instance's.
+
+    `lengths` come from `lengths_tensor`, checked there once: each call
+    compares the values' count with their host-kept total, and
+    `torch.segment_reduce` skips its own checks (`unsafe=True`), which read
+    the lengths back from the device and so drain the card's queue.  The
+    kernel and the order of the additions are the same, and so are the
+    bits."""
+    count = values.shape[-1] if order is None else order.shape[-1]
+    total = getattr(lengths, "segment_total", None)
+    if count != total:
+        raise ValueError(f"segment_sum: {count} values against segment lengths of total "
+                         f"{total} (lengths come from lengths_tensor)")
     lanes = values.shape[:-1]
     if values.shape[-1] == 0:
         return values.new_zeros(lanes + lengths.shape)
@@ -93,7 +121,7 @@ def segment_sum(values: torch.Tensor, lengths: torch.Tensor,
         values = values[..., order]
     if lanes:
         lengths = lengths.expand(lanes + lengths.shape)
-    return torch.segment_reduce(values, "sum", lengths=lengths, axis=-1)
+    return torch.segment_reduce(values, "sum", lengths=lengths, axis=-1, unsafe=True)
 
 
 def upper_lookup(U: sp.csc_matrix):

@@ -43,7 +43,7 @@ from ..ops import sparse_chol as SC
 from ..ops.kkt import torch_dtype
 from ..ops.krylov import pcg
 from ..utils import load_options
-from .sparse_common import (canonical_csc, get_sparse_kernel,
+from .sparse_common import (canonical_csc, get_sparse_kernel, lengths_tensor,
                             pattern_fingerprint, resolve_endgame, segment_sum, segments,
                             two_phase_opts, upper_lookup, value_gather)
 from .sparse_lp import _pair_lists, problem_arrays
@@ -155,12 +155,13 @@ class DeviceSparseCondensedKKT:
                 return torch.as_tensor(np.asarray(v, np.int64), device=device)
 
             ix = dict(pair_p=t(self.pair_p), pair_q=t(self.pair_q), pair_k=t(self.pair_k),
-                      order=t(order), lengths=t(lengths), h_sel=t(self.h_sel),
+                      order=t(order), lengths=lengths_tensor(lengths, len(order), device),
+                      h_sel=t(self.h_sel),
                       diag_pos=t(self.diag_pos), entry_row=t(self.entry_row),
                       entry_col=t(self.entry_col), value_gather=t(self.value_gather),
                       a0_rows=t(self.a0_rows), a0_cols=t(self.a0_cols),
-                      r_order=t(r_order), r_len=t(r_len), c_order=t(c_order),
-                      c_len=t(c_len))
+                      r_order=t(r_order), r_len=lengths_tensor(r_len, len(r_order), device),
+                      c_order=t(c_order), c_len=lengths_tensor(c_len, len(c_order), device))
             if self.use_ldl:
                 ix["signs"] = [torch.as_tensor(v, dtype=self.fact_dtype, device=device)
                                for v in self.expected_signs]

@@ -58,7 +58,7 @@ from ..ops.kkt import torch_dtype
 from ..ops.krylov import pcg
 from ..utils import load_options
 from .sparse_common import (canonical_coo_vals, canonical_csc, get_sparse_kernel,
-                            pattern_fingerprint, resolve_endgame,
+                            lengths_tensor, pattern_fingerprint, resolve_endgame,
                             segment_sum, segments, two_phase_opts,
                             upper_lookup, value_gather)
 from .sparse_qp import SparseQPProblem, _host_full_solve, _solve_phases
@@ -126,8 +126,8 @@ def coo_fields(rows, cols, vals, m, n, dtype, device) -> dict:
     col_order, col_len = segments(cols, n)
     return dict(rows=idx(rows), cols=idx(cols),
                 vals=torch.as_tensor(vals, dtype=dtype, device=device),
-                row_order=idx(row_order), row_len=idx(row_len),
-                col_order=idx(col_order), col_len=idx(col_len))
+                row_order=idx(row_order), row_len=lengths_tensor(row_len, len(rows), device),
+                col_order=idx(col_order), col_len=lengths_tensor(col_len, len(cols), device))
 
 
 def _pair_lists(A: sp.csc_matrix, S_up: sp.csc_matrix, payload=None):
@@ -265,7 +265,8 @@ class DeviceSparseNormalKKT:
                 return torch.as_tensor(np.asarray(v, np.int64), device=device)
 
             ix = dict(pair_p=t(self.pair_p[order]), pair_q=t(self.pair_q[order]),
-                      pair_k=t(self.pair_k[order]), pair_len=t(lengths),
+                      pair_k=t(self.pair_k[order]),
+                      pair_len=lengths_tensor(lengths, len(order), device),
                       diag_pos=t(self.diag_pos), entry_row=t(self.entry_row),
                       entry_col=t(self.entry_col))
             if self.symb is not None:

@@ -45,7 +45,7 @@ from ..ops.kkt import torch_dtype
 from ..utils import Counters, ExecutionStats, Status, load_options
 from .certificates import certify_exit_status
 from .driver import _STATUS_MAP
-from .sparse_common import (canonical_csc, get_sparse_kernel, measure_sparse_ls,
+from .sparse_common import (canonical_csc, get_sparse_kernel, lengths_tensor, measure_sparse_ls,
                             pattern_fingerprint, resolve_endgame, segment_sum, segments,
                             stepped_solve, two_phase_opts, upper_lookup, value_gather)
 
@@ -126,6 +126,9 @@ class DeviceSparseAugmentedKKT:
 
     name = "sparse-augmented(device)"
     lane_axis = True   # BatchedMPCKernel admits it
+    # the direction (solves, kkt_mul, the residual check) reads nothing back
+    # to the host: MPCKernel replays it as one CUDA graph on a card
+    capturable_direction = True
 
     def __init__(self, H: Optional[sp.spmatrix], A: sp.spmatrix, order: str = "auto",
                  max_supernode: int = 128, fact_dtype=None,
@@ -206,7 +209,8 @@ class DeviceSparseAugmentedKKT:
                 return torch.as_tensor(np.asarray(v, np.int64), device=device)
 
             dt = self.fact_dtype or torch.float64
-            ix = dict(order=t(order), lengths=t(lengths), h_sel=t(self.h_sel),
+            ix = dict(order=t(order), lengths=lengths_tensor(lengths, len(order), device),
+                      h_sel=t(self.h_sel),
                       alldiag_pos=t(self.alldiag_pos), entry_row=t(self.entry_row),
                       entry_col=t(self.entry_col), value_gather=t(self.value_gather),
                       signs=[torch.as_tensor(v, dtype=dt, device=device)

@@ -762,3 +762,116 @@ def test_ldl_blocks_matches_plain_base(cuda, lanes, n, dtype, tol):
     assert float((L.cpu() - Lp).abs().max()) <= tol * float(Lp.abs().max())
     assert float((d.cpu() - dp).abs().max()) <= tol * float(dp.abs().max())
     assert torch.equal(torch.sign(d.cpu()), torch.sign(dp))
+
+
+# ---------------------------------------------------------------------------
+# The sparse augmented direction replayed as one CUDA graph (solver/mpc.py
+# `DirectionGraph`): sync-free, bit for bit the eager direction
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def fresh_kernels(monkeypatch):
+    """An empty pattern cache, so that each test's kernels (and their
+    graphs and counters) are its own."""
+    from collections import OrderedDict
+
+    from madqp_tpu_torch.solver import sparse_common
+
+    monkeypatch.setattr(sparse_common, "_KERNEL_CACHE", OrderedDict())
+
+
+def _cvxqp_solver(device, n=1000, seed=0):
+    from madqp_tpu_torch.models.suite import cvxqp_like
+
+    return mt.MPCSolver(cvxqp_like(n, seed), device=device, kkt_system="sparse-augmented",
+                        tol=1e-8, print_level=40)
+
+
+def _direction_inputs(solver, iterations=3):
+    """The direction's inputs at the iteration after `iterations` calls
+    (the starting point first), as `MPCKernel._work` makes them."""
+    kernel, p = solver.kernel, solver.prob
+    state = kernel.init_state(p, solver._x0, solver._y0, solver._lb0, solver._ub0)
+    for _ in range(iterations):
+        state = kernel.iteration(p, state)
+    state, g, c_res, jacl, _, _ = kernel._residuals(p, state)
+    del_w, del_c, _, _ = kernel._work_regularization(p, state)
+    factors, del_w, del_c, ok = kernel.factorize_with_retry(
+        p, state.x, state.lb, state.ub, state.zl, state.zu, del_w, del_c)
+    assert ok and state.initialized
+    return kernel, (p, state, factors, g, jacl, c_res, del_w, del_c)
+
+
+def _flat(out):
+    d, mu_new, failed = out
+    return [*d, mu_new, failed]
+
+
+def test_replayed_direction_is_bit_equal_to_eager(cuda, fresh_kernels):
+    """On the port's CVXQP generator: the direction captured and replayed,
+    then replayed again on the same inputs, equals the eager `_direction`
+    bit for bit (direction, barrier, failure flag)."""
+    from madqp_tpu_torch.solver.mpc import DirectionGraph
+
+    kernel, args = _direction_inputs(_cvxqp_solver(cuda))
+    eager = _flat(kernel._direction(*args))
+    graph = DirectionGraph(kernel)
+    assert graph.route(*args) == "capture"
+    first = _flat(graph(*args))
+    assert graph.route(*args) == "replay"
+    again = _flat(graph(*args))
+    for got in (first, again):
+        assert all(torch.equal(a, b) for a, b in zip(got, eager))
+    assert not bool(eager[-1])
+
+
+def test_direction_is_sync_free(cuda, fresh_kernels):
+    """`torch.cuda.set_sync_debug_mode("error")` stays silent around an eager
+    direction and around a replay (slot copies, launch, output copies):
+    the unchecked segment sums and the sentinel fills read nothing back."""
+    from madqp_tpu_torch.solver.mpc import DirectionGraph
+
+    kernel, args = _direction_inputs(_cvxqp_solver(cuda))
+    graph = DirectionGraph(kernel)
+    graph(*args)    # the capture synchronizes by design: outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager = _flat(kernel._direction(*args))
+        replayed = _flat(graph(*args))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(torch.equal(a, b) for a, b in zip(replayed, eager))
+
+
+def test_solve_through_the_graph_matches_eager(cuda, fresh_kernels, monkeypatch):
+    """A whole solve with its directions replayed takes the eager solve's
+    iterations, objective and iterate, bit for bit."""
+    from madqp_tpu_torch.solver.sparse_qp import DeviceSparseAugmentedKKT
+
+    solver = _cvxqp_solver(cuda)
+    got = solver.solve()
+    assert solver.kernel.directions["replay"] == got.iter - 1
+    monkeypatch.setattr(DeviceSparseAugmentedKKT, "capturable_direction", False)
+    eager = _cvxqp_solver(cuda)
+    want = eager.solve()
+    assert eager.kernel is solver.kernel
+    assert got.status == want.status == mt.Status.SOLVE_SUCCEEDED
+    assert got.iter == want.iter
+    assert got.objective == want.objective
+    np.testing.assert_array_equal(got.solution, want.solution)
+    np.testing.assert_array_equal(got.multipliers, want.multipliers)
+
+
+def test_graph_counters_one_capture_per_pattern(cuda, fresh_kernels):
+    """Two patterns, two solves each: one capture per pattern, at its first
+    iteration after the starting point; every later direction a replay;
+    the starting points eager."""
+    for n in (1000, 500):
+        solves = [_cvxqp_solver(cuda, n, seed) for seed in (0, 1)]
+        iters = [s.solve().iter for s in solves]
+        kernel = solves[0].kernel
+        assert solves[1].kernel is kernel
+        assert dict(kernel.directions) == {"eager": 2, "capture": 1,
+                                           "replay": iters[0] - 1 + iters[1]}
