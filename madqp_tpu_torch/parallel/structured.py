@@ -61,6 +61,7 @@ from ..ops.pallas_chol import select_cholesky
 from ..solver import state as S
 from ..solver.mpc import MPCKernel, tree_map
 from ..utils import Counters, ExecutionStats, Status, load_options
+from ..utils.profiling import span, to_host
 from .batched import _STATUS_MAP
 from .mesh import Axis, resolve
 
@@ -212,25 +213,33 @@ class SchurKKT:
 
     def factorize(self, p: TwoStageProblem, pr_diag, del_c):
         d0, ds = p.split_x(pr_diag)
-        # Scenario blocks: U_i = H_i + diag(sigma_i); S_i = W U^-1 W' - dc I.
-        WT = p.W_s.mT  # (N, ns, ms)
-        if p.H_s is None:
-            chol_U = None
-            Uinv_WT = WT / ds[:, :, None]
-        else:
-            chol_U = self._chol(p.H_s + torch.diag_embed(ds))
-            Uinv_WT = torch.cholesky_solve(WT, chol_U)
-        eye = torch.eye(p.ms, dtype=p.W_s.dtype, device=p.W_s.device)
-        chol_S = self._chol((p.W_s @ Uinv_WT - del_c * eye).contiguous())
-        X = torch.cholesky_solve(p.T_s, chol_S)  # S_i^-1 T_i
+        with span("schur.scenarios"):
+            # Scenario blocks: U_i = H_i + diag(sigma_i); S_i = W U^-1 W' - dc I.
+            WT = p.W_s.mT  # (N, ns, ms)
+            if p.H_s is None:
+                chol_U = None
+                Uinv_WT = WT / ds[:, :, None]
+            else:
+                chol_U = self._chol(p.H_s + torch.diag_embed(ds))
+                Uinv_WT = torch.cholesky_solve(WT, chol_U)
+            S_i = (p.W_s @ Uinv_WT).contiguous()
+            # U^-1 W' is as large as the W stack: it goes before S is
+            # factored, and dc comes off S's diagonal in place.
+            del Uinv_WT
+            S_i.diagonal(dim1=-2, dim2=-1).sub_(del_c)
+            with span("schur.factor_S"):
+                chol_S = self._chol(S_i)
+            del S_i
+            X = torch.cholesky_solve(p.T_s, chol_S)  # S_i^-1 T_i
 
-        # First-stage Schur complement C00 = H0 + diag(d0) + sum_i Ti' Si^-1 Ti.
-        C00 = torch.diag(d0) + _sum(p.axis, torch.einsum("imk,iml->kl", p.T_s, X))
-        if p.H0 is not None:
-            C00 = C00 + p.H0
-        # C00 is the first stage's whole W: no diagonal added to it.
-        first = self._dense.factorize(_FirstStageProb(H=C00.contiguous(), A=p.A0),
-                                      torch.zeros_like(d0), del_c)
+        with span("schur.first"):
+            # First-stage Schur complement C00 = H0 + diag(d0) + sum_i Ti' Si^-1 Ti.
+            C00 = torch.diag(d0) + _sum(p.axis, torch.einsum("imk,iml->kl", p.T_s, X))
+            if p.H0 is not None:
+                C00 = C00 + p.H0
+            # C00 is the first stage's whole W: no diagonal added to it.
+            first = self._dense.factorize(_FirstStageProb(H=C00.contiguous(), A=p.A0),
+                                          torch.zeros_like(d0), del_c)
         return SchurFactors(chol_U=chol_U, u_diag=ds, chol_S=chol_S, X=X,
                             first=first, W_s=p.W_s, T_s=p.T_s, axis=p.axis)
 
@@ -241,24 +250,25 @@ class SchurKKT:
         return DenseCondensedKKT._cho_solve(f.chol_U, r)
 
     def solve(self, f: SchurFactors, rx, ry):
-        _, ms, n0 = f.X.shape
-        ns = f.u_diag.shape[1]
-        m0 = f.first.A.shape[0]
-        rx0, rxs = rx[:n0], _own(f.axis, rx[n0:].reshape(-1, ns))
-        ry0, rys = ry[:m0], _own(f.axis, ry[m0:].reshape(-1, ms))
+        with span("schur.solve"):
+            _, ms, n0 = f.X.shape
+            ns = f.u_diag.shape[1]
+            m0 = f.first.A.shape[0]
+            rx0, rxs = rx[:n0], _own(f.axis, rx[n0:].reshape(-1, ns))
+            ry0, rys = ry[:m0], _own(f.axis, ry[m0:].reshape(-1, ms))
 
-        # Local forward elimination: q_i = S_i^-1 (W_i U_i^-1 rx_i - ry_i).
-        w_term = torch.einsum("imn,in->im", f.W_s, self._U_solve(f, rxs))
-        q = DenseCondensedKKT._cho_solve(f.chol_S, w_term - rys)
+            # Local forward elimination: q_i = S_i^-1 (W_i U_i^-1 rx_i - ry_i).
+            w_term = torch.einsum("imn,in->im", f.W_s, self._U_solve(f, rxs))
+            q = DenseCondensedKKT._cho_solve(f.chol_S, w_term - rys)
 
-        # First-stage solve with reduced rhs r0 - sum_i Ti' q_i.
-        TtQ = _sum(f.axis, torch.einsum("imk,im->k", f.T_s, q))
-        dx0, dy0 = self._dense.solve(f.first, rx0 - TtQ, ry0)
+            # First-stage solve with reduced rhs r0 - sum_i Ti' q_i.
+            TtQ = _sum(f.axis, torch.einsum("imk,im->k", f.T_s, q))
+            dx0, dy0 = self._dense.solve(f.first, rx0 - TtQ, ry0)
 
-        # Local back-substitution.
-        dys = q + torch.einsum("imk,k->im", f.X, dx0)
-        dxs = self._U_solve(f, rxs - torch.einsum("imn,im->in", f.W_s, dys))
-        return _join(f.axis, dx0, dxs), _join(f.axis, dy0, dys)
+            # Local back-substitution.
+            dys = q + torch.einsum("imk,k->im", f.X, dx0)
+            dxs = self._U_solve(f, rxs - torch.einsum("imn,im->in", f.W_s, dys))
+            return _join(f.axis, dx0, dxs), _join(f.axis, dy0, dys)
 
     def factor_ok(self, f: SchurFactors) -> torch.Tensor:
         """Every factor diagonal finite and positive (U's diagonal itself
@@ -286,32 +296,41 @@ def build_two_stage(
     """Assemble a TwoStageProblem on `device` (the CUDA card unless the
     caller asks for the CPU) from block data (equality-form rows, +-inf
     bounds).  Returns (problem, lb_flat, ub_flat) with sanitized bounds +
-    masks following the models.qp convention."""
+    masks following the models.qp convention.
+
+    A block may be a NumPy array or a torch tensor.  A tensor already on
+    `device` in `dtype` and contiguous is kept as it is, not copied (the
+    scenario stacks of a large problem made on the card stay there); the
+    bounds' masks are taken at each block's own precision, before the
+    cast to `dtype`, whichever it is."""
     dtype = torch_dtype(dtype)
 
-    def as_dev(v):
-        return torch.as_tensor(np.asarray(v), dtype=dtype, device=device).contiguous()
+    def own(v):
+        return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
 
-    lb_flat = np.concatenate([np.asarray(lb0), np.asarray(lb_s).reshape(-1)])
-    ub_flat = np.concatenate([np.asarray(ub0), np.asarray(ub_s).reshape(-1)])
-    has_lb = np.isfinite(lb_flat)
-    has_ub = np.isfinite(ub_flat)
-    lb_flat = np.where(has_lb, lb_flat, 0.0)
-    ub_flat = np.where(has_ub, ub_flat, 0.0)
+    def as_dev(v):
+        return own(v).to(device=device, dtype=dtype).contiguous()
+
+    def flat(v0, vs):
+        return torch.cat([own(v0).to(device).reshape(-1), own(vs).to(device).reshape(-1)])
+
+    lb_flat, ub_flat = flat(lb0, lb_s), flat(ub0, ub_s)
+    has_lb, has_ub = torch.isfinite(lb_flat), torch.isfinite(ub_flat)
 
     prob = TwoStageProblem(
         c0=as_dev(c_const),
         c=torch.cat([as_dev(c0_vec), as_dev(c_s).reshape(-1)]),
         b=torch.cat([as_dev(b0), as_dev(b_s).reshape(-1)]),
-        has_lb=torch.as_tensor(has_lb, device=device),
-        has_ub=torch.as_tensor(has_ub, device=device),
+        has_lb=has_lb,
+        has_ub=has_ub,
         H0=None if H0 is None else as_dev(H0),
         A0=as_dev(A0),
         H_s=None if H_s is None else as_dev(H_s),
         T_s=as_dev(T_s),
         W_s=as_dev(W_s),
     )
-    return prob, as_dev(lb_flat), as_dev(ub_flat)
+    return (prob, as_dev(torch.where(has_lb, lb_flat, 0.0)),
+            as_dev(torch.where(has_ub, ub_flat, 0.0)))
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -429,27 +448,31 @@ def solve_two_stage(
     kernel = MPCKernel(opts)
     dtype = torch_dtype(opts.dtype)
 
-    t0 = time.time()
-    final = kernel.init_state(prob, torch.zeros(prob.n, dtype=dtype, device=device),
-                              torch.zeros(prob.m, dtype=dtype, device=device), lb, ub)
-    while final.status == S.RUNNING:
-        final = kernel.iteration(prob, final)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    wall = time.time() - t0
+    with span("solve"):
+        t0 = time.time()
+        final = kernel.init_state(prob, torch.zeros(prob.n, dtype=dtype, device=device),
+                                  torch.zeros(prob.m, dtype=dtype, device=device), lb, ub)
+        while final.status == S.RUNNING:
+            final = kernel.iteration(prob, final)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.time() - t0
 
-    return ExecutionStats(
-        status=_STATUS_MAP.get(final.status, Status.INTERNAL_ERROR),
-        objective=float(final.obj_val),
-        solution=_host(final.x),
-        constraints=_host(prob.jac_mv(final.x)),
-        multipliers=_host(final.y),
-        multipliers_L=_host(final.zl),
-        multipliers_U=_host(final.zu),
-        iter=final.k,
-        counters=Counters(total_time=wall, k=final.k, factorizations=final.n_fact),
-        primal_feas=float(final.inf_pr),
-        dual_feas=float(final.inf_du),
-        complementarity=float(final.inf_compl),
-        options=opts,
-    )
+        def read(t):
+            return to_host(t, "finish", numpy=t.dim() > 0)
+
+        return ExecutionStats(
+            status=_STATUS_MAP.get(final.status, Status.INTERNAL_ERROR),
+            objective=read(final.obj_val),
+            solution=read(final.x),
+            constraints=read(prob.jac_mv(final.x)),
+            multipliers=read(final.y),
+            multipliers_L=read(final.zl),
+            multipliers_U=read(final.zu),
+            iter=final.k,
+            counters=Counters(total_time=wall, k=final.k, factorizations=final.n_fact),
+            primal_feas=read(final.inf_pr),
+            dual_feas=read(final.inf_du),
+            complementarity=read(final.inf_compl),
+            options=opts,
+        )

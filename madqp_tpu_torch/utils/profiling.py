@@ -25,13 +25,17 @@ program's own spans and host reads.
   `start_ns()` is on the first clock, the spans on the second:
   `to_profiler_ns` maps a span's time onto the profiler's timeline.
 
-The layer boundaries the spans mark: `solve` (`MPCSolver.solve`),
-`construct` and `construct.kkt` (the solver's construction and the sparse
-KKT's pattern-cache lookup, `value` True where the symbolic analysis ran),
-`kernel.load` (a CUDA library built or loaded), `iter` (one call of an MPC
-kernel's `iteration`, `value` the iteration count of a single solve) and
-its phases `iter.residuals`, `iter.factorize` (one per factorization
-trial), `iter.direction` and `iter.step`.
+The layer boundaries the spans mark: `solve` (`MPCSolver.solve`,
+`solve_two_stage`), `construct` and `construct.kkt` (the solver's
+construction and the sparse KKT's pattern-cache lookup, `value` True where
+the symbolic analysis ran), `kernel.load` (a CUDA library built or
+loaded), `iter` (one call of an MPC kernel's `iteration`, `value` the
+iteration count of a single solve) and its phases `iter.residuals`,
+`iter.factorize` (one per factorization trial), `iter.direction` and
+`iter.step`; inside the two-stage Schur KKT `schur.scenarios` (a trial's
+scenario stacks: S = W U^-1 W', its factor, X = S^-1 T), within it
+`schur.factor_S` (the S stack's factorization alone), `schur.first` (the
+first-stage Schur complement and its factors) and `schur.solve`.
 """
 
 from __future__ import annotations
