@@ -186,8 +186,10 @@ Phases (each raises on failure, so any failure exits non-zero):
               and cvxqp in float64 (K1's batched form on C's fronts;
               iterations within COND_ITER_BAND of condensed_xlarge) and
               cvxqp with --mixed-precision --endgame krylov; per run the
-              K2-batched and K1 launches per factorization trial, solve
-              and host symbolic seconds; K2-batched on cvxqp's
+              factorization trials by route (the augmented system's all
+              replays of one graph but its capture), the K2-batched and K1
+              launches per trial run on the card (a capture runs twice),
+              solve and host symbolic seconds; K2-batched on cvxqp's
               and chainqp's captured fronts (each member's last float64
               trial; backward error within LDL_BACKWARD_TOL of
               max|L||D||L^T|, pivot signs as the plain version's; each
@@ -1943,7 +1945,7 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi, save_fronts=None):
     from madqp_tpu_torch.io.mps_write import write_mps
     from madqp_tpu_torch.ops import blocked_dense as BD
     from madqp_tpu_torch.ops import sparse_chol as SC
-    from madqp_tpu_torch.solver import sparse_condensed, sparse_qp
+    from madqp_tpu_torch.solver import sparse_common, sparse_condensed, sparse_qp
 
     phase("17b. sparse QP on the card: the xlarge QP members through --backend "
           "sparse-device (augmented K2; condensed K1 on chainqp and cvxqp)")
@@ -1957,9 +1959,13 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi, save_fronts=None):
     print(f"  {len(instances)} instances written and read back in "
           f"{time.perf_counter() - t0:.3f} s")
     check(sorted(instances) == sorted(aug), f"xlarge QP members: {sorted(instances)}")
-    # Count the factorization trials, time the host symbolic phase (the KKT's
-    # construction), and keep the front probes' last trial's F11 stacks.
-    trials, symbolic, fronts = [0], [0.0], {}
+    # Time the host symbolic phase (the KKT's construction), keep the front
+    # probes' last trial's F11 stacks, and count the factorization trials by
+    # route from the kernels' own counters (`MPCKernel.factorizations`): the
+    # augmented KKT's trials replay a graph, which calls `factorize` only at
+    # its capture.  The clones taken at the capture are the graph's, so every
+    # replay writes its fronts into them: they end as the last trial's.
+    symbolic, fronts = [0.0], {}
     kkts = (sparse_qp.DeviceSparseAugmentedKKT, sparse_condensed.DeviceSparseCondensedKKT)
     orig = {cls: (cls.__init__, cls.factorize) for cls in kkts}
     orig_ldl = BD.ldl_lower_batched
@@ -1973,12 +1979,23 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi, save_fronts=None):
             init(self, *a, **kw)
             symbolic[0] += time.perf_counter() - t
 
-        def counted(self, *a):
-            trials[0] += 1
+        def kept(self, *a):
             if capture[0]:
                 fronts[capture[0]] = []
             return fact(self, *a)
-        cls.__init__, cls.factorize = timed_init, counted
+        cls.__init__, cls.factorize = timed_init, kept
+
+    def trial_counts():
+        """Each cached sparse kernel and its trials by route, as they stand."""
+        return {id(kernel): (kernel, collections.Counter(kernel.factorizations))
+                for _, kernel in sparse_common._KERNEL_CACHE.values()}
+
+    def trials_since(before):
+        """The trials by route that the cached kernels made since `before`."""
+        got = collections.Counter()
+        for _, kernel in sparse_common._KERNEL_CACHE.values():
+            got += kernel.factorizations - before.get(id(kernel), (None, collections.Counter()))[1]
+        return got
 
     def captured(F, sgn=None, floor=0.0):
         if capture[0]:
@@ -2001,14 +2018,18 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi, save_fronts=None):
             if "--sparse-kkt" not in args:
                 argv += ["--sparse-kkt", "auto"]
             options = runner.solve_options(runner.parser().parse_args(argv))
-            trials[0], symbolic[0] = 0, 0.0
+            symbolic[0] = 0.0
             capture[0] = name if name in FRONT_PROBES and label == "f64" else None
             reset_counts(k1, k8)
+            before = trial_counts()
             t0 = time.perf_counter()
             rec = runner.run_instance(name, instances[name], options)
             wall = time.perf_counter() - t0
             n2, n1 = k2.ldl_lower_batched.launches, k1.cholesky_lower.launches
-            routes, nt = dict(k1.cholesky_lower.routes), trials[0]
+            routes, by_route = dict(k1.cholesky_lower.routes), trials_since(before)
+            # a trial that captures runs on the card twice: the warm-up, then
+            # its replay
+            nt, on_card = sum(by_route.values()), sum(by_route.values()) + by_route["capture"]
             launches += n2
             k1_lanes += routes.get("persistent", 0)
             k1_batched += n1 - routes.get("persistent", 0) - routes.get("single", 0)
@@ -2018,20 +2039,22 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi, save_fronts=None):
             if label == "f64":
                 w = aug[name]["f64"]
                 ok, rel = qp_record_checks(rec, w, 1e-8, 1, w["objective"])
-                ok = ok and n2 == stacks * nt and n1 == 0 and kkt.m == aug[name]["m"]
+                ok = (ok and n2 == stacks * on_card and n1 == 0 and kkt.m == aug[name]["m"]
+                      and by_route["eager"] == 0)
             elif label == "mixed":
                 w = aug[name]["mixed"]
                 bound = max(MIXED_RTOL, 2 * rel_err(w["objective"], f64["objective"]))
                 ok, rel = qp_record_checks(rec, w, bound, MIXED_ITER_BAND, f64["objective"])
-                ok = (ok and n1 == 0 and n2 == stacks * nt and n2 > 0
+                ok = (ok and n1 == 0 and n2 == stacks * on_card and n2 > 0
+                      and by_route["eager"] == 0
                       and rec.get("endgame_backend") in ("host", "host-cold"))
             else:
                 w = cond[name]["f64" if label == "condensed" else "krylov"]
                 band = COND_ITER_BAND if label == "condensed" else MIXED_ITER_BAND
                 bound = 1e-8 if label == "condensed" else MIXED_RTOL
                 ok, rel = qp_record_checks(rec, w, bound, band, cond[name]["f64"]["objective"])
-                if label == "condensed":   # K1's batched form on C's SPD fronts
-                    ok = ok and n1 == stacks * nt and n2 == 0
+                if label == "condensed":   # K1's batched form on C's SPD fronts, eager
+                    ok = ok and n1 == stacks * on_card == stacks * by_route["eager"] and n2 == 0
                 else:                      # the float32 fronts on K2-batched, then CG
                     ok = (ok and n2 > 0 and n1 == 0
                           and rec.get("endgame_backend") == w["endgame_backend"])
@@ -2039,13 +2062,14 @@ def sparse_qp_phase(torch, mt, k1, k8, k2, ref, smi, save_fronts=None):
                   f"iter={rec['iter']} (ref {w['iter']}) rel={rel:.2e} solve="
                   f"{rec['total_time']:.3f} s wall={wall:.3f} s host symbolic "
                   f"{symbolic[0]:.3f} s endgame={rec.get('endgame_backend', '-')} "
-                  f"{rec.get('endgame_time', 0.0):.3f} s; {nt} factorization trials, "
-                  f"K2-batched launches {n2} ({n2 / max(nt, 1):.1f} per trial), K1 {n1} "
+                  f"{rec.get('endgame_time', 0.0):.3f} s; {nt} factorization trials "
+                  f"{dict(by_route)}, K2-batched launches {n2} ({n2 / max(on_card, 1):.1f} "
+                  f"per run of a trial on the card), K1 {n1} "
                   f"{routes}; schedule {stacks} front stacks: {items}", flush=True)
             if not ok:
                 fails.append(f"{label} {name}: {rec.get('status_detail', rec['status'])} "
                              f"iter {rec['iter']} (ref {w['iter']}) rel {rel:.2e} "
-                             f"K2 {n2} K1 {n1} ({stacks} x {nt})")
+                             f"K2 {n2} K1 {n1} ({stacks} x {on_card}; {dict(by_route)})")
     finally:
         for cls in kkts:
             cls.__init__, cls.factorize = orig[cls]

@@ -1000,7 +1000,7 @@ def _work(ds: _DeviceSchedule, a_values: torch.Tensor) -> torch.Tensor:
     """The working vector of each lane: (..., size) for values (..., n_a)."""
     w = a_values.new_zeros(a_values.shape[:-1] + (ds.size,))
     w[..., :ds.n_a] = a_values
-    w[..., ds.one] = 1.0
+    w[..., ds.one].fill_(1.0)   # a fill on the device: a store copies from the host
     return w
 
 
@@ -1253,7 +1253,7 @@ def factorize_batched_ldl(bs: "BucketedSymbolic", a_values: torch.Tensor, signs=
     for steps, item, d in zip(ds.items, bs.schedule, dvecs):
         cols = torch.cat([st.cols.reshape(-1) for st in steps])
         dglob[..., cols] = d.reshape(lanes + (-1,))
-    dglob[..., bs.n] = 1.0
+    dglob[..., bs.n].fill_(1.0)
     return panels, dvecs, dglob
 
 

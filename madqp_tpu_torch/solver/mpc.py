@@ -23,7 +23,14 @@ into one XLA program (`lax.while_loop`, `lax.scan`, `lax.switch`,
     direction after the starting point as one CUDA graph
     (`DirectionGraph`): one launch in place of the thousands of its
     operations.  The span `iter.direction` holds the route ("eager",
-    "capture", "replay"), and `MPCKernel.directions` counts them.
+    "capture", "replay"), and `MPCKernel.directions` counts them;
+  * likewise each factorization trial, where the KKT declares it
+    capturable (`capturable_factorize`): one graph (`TrialGraph`) that
+    every trial replays, the starting point's too, the escalation and the
+    `factor_ok` read staying between trials.  `iter.factorize` holds the
+    route and `MPCKernel.factorizations` counts them.  The hand-written
+    kernels' host launch counters (K1's, K2-batched's, K8's) count a
+    graph's launches at every replay, as the eager calls would.
 
 `BatchedMPCKernel` runs the same iteration over a batch of problems
 (leading lane axis), lane-masked: it reproduces what `jax.vmap` makes of
@@ -45,6 +52,7 @@ import collections
 import torch
 
 from ..ops import kernels as K
+from ..ops import ldl_batched, pallas_chol, syrk
 from ..ops.kkt import kkt_mul, make_kkt, torch_dtype
 from ..utils.options import (
     IPMOptions,
@@ -74,6 +82,13 @@ _GONDZIO_BETA_MIN = 0.1
 _GONDZIO_BETA_MAX = 10.0
 _GONDZIO_TAU = 0.995
 _GONDZIO_ACCEPT = 1.005   # reference src/solver.jl:241
+
+
+def _escalate(del_w, del_c):
+    """Both regularizations after a failed factorization trial: 100 times
+    larger, or a small nonzero where zero."""
+    return (torch.where(del_w != 0.0, del_w * _REG_ESCALATION, 1e-8),
+            torch.where(del_c != 0.0, del_c * _REG_ESCALATION, -1e-8))
 
 
 def _select(pred, a: K.KKTVec, b: K.KKTVec) -> K.KKTVec:
@@ -117,6 +132,42 @@ def _signature(leaves) -> tuple:
                  if isinstance(t, torch.Tensor) else t for t in leaves)
 
 
+def _launch_counters() -> tuple:
+    """The hand-written kernels' host launch counters: K1's (`launches`
+    and `routes`, launches by route), K2-batched's and K8's (`launches`)."""
+    return (pallas_chol.cholesky_lower, ldl_batched.ldl_lower_batched, syrk.syrk_update)
+
+
+def _launch_counts() -> list:
+    """Each counter's launches and launches by route, as they stand."""
+    return [(fn.launches, dict(getattr(fn, "routes", {}))) for fn in _launch_counters()]
+
+
+def _set_launch_counts(counts) -> None:
+    """Put the counters back to `counts` (as `_launch_counts` read them),
+    in place: callers keep and clear `routes` itself."""
+    for fn, (n, routes) in zip(_launch_counters(), counts):
+        fn.launches = n
+        if hasattr(fn, "routes"):
+            fn.routes.clear()
+            fn.routes.update(routes)
+
+
+def _launches_since(before) -> list:
+    """What the counters counted since `before` (as `_launch_counts` read
+    them): launches, and launches by route where they changed."""
+    return [(n - m, {r: k - rb.get(r, 0) for r, k in ra.items() if k != rb.get(r, 0)})
+            for (n, ra), (m, rb) in zip(_launch_counts(), before)]
+
+
+def _add_launches(added) -> None:
+    """Count `added` (launches and launches by route per counter) again."""
+    for fn, (n, routes) in zip(_launch_counters(), added):
+        fn.launches += n
+        for route, k in routes.items():
+            fn.routes[route] = fn.routes.get(route, 0) + k
+
+
 def _slot(t: torch.Tensor) -> torch.Tensor:
     """A static input slot: a copy of `t` that keeps its Python attributes
     (a segment length's total)."""
@@ -125,18 +176,20 @@ def _slot(t: torch.Tensor) -> torch.Tensor:
     return slot
 
 
-class DirectionGraph:
-    """`MPCKernel._direction` after the starting point as one CUDA graph,
-    captured once and replayed at every later iteration (one per kernel,
-    so one per pattern on the sparse paths).
+class _KernelGraph:
+    """One step of an `MPCKernel` as one CUDA graph, captured once and
+    replayed at every later call (one per kernel, so one per pattern on
+    the sparse paths).
 
     The graph reads static input slots: each call copies its inputs in
-    (the problem, the iterate's x, zl, zu, lb and ub, the factors, g, jacl,
-    c_res, del_w and del_c) and replays.  Inputs that differ from the
-    captured ones in anything but their values (`_signature`) are captured
-    anew.  The outputs are the graph's own tensors, which the next replay
-    overwrites: the direction and the barrier, which the new state keeps,
-    are returned as copies, the failure flag (read at once) as it is.
+    (`_inputs`: a `tree_map` tree of the call's tensors, by default its
+    arguments) and replays.  Inputs that differ from the captured ones in
+    anything but their values (`_signature`) are captured anew.  The
+    outputs are the graph's own tensors, which the next replay overwrites.
+    The kernels' host launch counters (`_launch_counters`) count a replay
+    as the step's eager launches: the capture takes back what it counted
+    (it launched nothing) and keeps it in `launches`, which every replay
+    adds.
 
     The capture follows `torch.cuda.graph`: one eager run on the capture
     stream first, so that its cuBLAS handle and workspace exist, then the
@@ -145,50 +198,86 @@ class DirectionGraph:
     def __init__(self, kernel: "MPCKernel"):
         self.kernel = kernel
         self.signature = None
-        self.graph = self.slots = self.out = None
+        self.graph = self.slots = self.out = self.launches = None
 
-    @staticmethod
-    def _inputs(p, state, factors, g, jacl, c_res, del_w, del_c):
-        return (p, (state.x, state.zl, state.zu, state.lb, state.ub), factors, g, jacl,
-                c_res, del_w, del_c)
+    def _inputs(self, *args):
+        return args
+
+    def _run(self, args, inputs):
+        """The step on `inputs` (the slots), `args` the call's own."""
+        raise NotImplementedError
 
     def route(self, *args) -> str:
         """"replay", or "capture" where the graph does not fit these inputs."""
         fits = _signature(_leaves(self._inputs(*args))) == self.signature
         return "replay" if fits else "capture"
 
-    def __call__(self, p, state, *args):
-        inputs = self._inputs(p, state, *args)
+    def __call__(self, *args):
+        inputs = self._inputs(*args)
         leaves = _leaves(inputs)
         signature = _signature(leaves)
         if signature != self.signature:
-            self._capture(state, inputs, signature)
+            self._capture(args, inputs, signature)
         for slot, t in zip(self.slots, leaves):
             if isinstance(t, torch.Tensor):
                 slot.copy_(t)
         self.graph.replay()
-        d, mu_new, failed = self.out
-        return K.KKTVec(*(v.clone() for v in d)), mu_new.clone(), failed
+        _add_launches(self.launches)
+        return self.out
 
-    def _run(self, state, p, bounds, *args):
-        x, zl, zu, lb, ub = bounds
-        return self.kernel._direction(
-            p, state._replace(x=x, zl=zl, zu=zu, lb=lb, ub=ub), *args)
-
-    def _capture(self, state, inputs, signature):
-        self.graph = self.slots = self.out = None   # the old graph's memory first
-        device = state.x.device
+    def _capture(self, args, inputs, signature):
+        self.graph = self.slots = self.out = self.launches = None   # the old graph's memory first
+        device = next(t.device for t in _leaves(inputs) if isinstance(t, torch.Tensor))
         slots = tree_map(_slot, inputs)
         stream = torch.cuda.Stream(device=device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            self._run(state, *slots)
+            self._run(args, slots)
         graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
         with torch.cuda.graph(graph, stream=stream):
-            out = self._run(state, *slots)
+            out = self._run(args, slots)
+        self.launches = _launches_since(before)
+        _set_launch_counts(before)
         torch.cuda.current_stream(device).wait_stream(stream)
         self.graph, self.out, self.signature = graph, out, signature
         self.slots = _leaves(slots)
+
+
+class DirectionGraph(_KernelGraph):
+    """`MPCKernel._direction` after the starting point as one CUDA graph
+    (`_KernelGraph`).  Its inputs: the problem, the iterate's x, zl, zu, lb
+    and ub, the factors, g, jacl, c_res, del_w and del_c.  The direction
+    and the barrier, which the new state keeps, are returned as copies,
+    the failure flag (read at once) as it is."""
+
+    @staticmethod
+    def _inputs(p, state, factors, g, jacl, c_res, del_w, del_c):
+        return (p, (state.x, state.zl, state.zu, state.lb, state.ub), factors, g, jacl,
+                c_res, del_w, del_c)
+
+    def __call__(self, *args):
+        d, mu_new, failed = super().__call__(*args)
+        return K.KKTVec(*(v.clone() for v in d)), mu_new.clone(), failed
+
+    def _run(self, args, inputs):
+        p, (x, zl, zu, lb, ub), *rest = inputs
+        return self.kernel._direction(p, args[1]._replace(x=x, zl=zl, zu=zu, lb=lb, ub=ub),
+                                      *rest)
+
+
+class TrialGraph(_KernelGraph):
+    """One factorization trial, `MPCKernel._factorize` (the sigma diagonal,
+    the KKT's factorization and its `factor_ok` flag), as one CUDA graph
+    (`_KernelGraph`).  Its inputs: the problem, x, lb, ub, zl, zu, del_w
+    and del_c; the regularization's escalation between trials stays
+    outside, so every trial replays the same graph.  The factors and the
+    flag are returned as the graph's own: a failed trial's factors are
+    never used, and the direction reads the kept ones (or copies them into
+    its own slots) before the next trial's replay overwrites them."""
+
+    def _run(self, args, inputs):
+        return self.kernel._factorize(*inputs)
 
 
 class MPCKernel:
@@ -206,13 +295,17 @@ class MPCKernel:
         )
         self.dtype = torch_dtype(opts.dtype)
         self.eps = torch.finfo(self.dtype).eps
-        # single solves' directions by route ("eager", "capture", "replay";
-        # `_work`), and the replayed direction (`_direction_graph`)
+        # single solves' directions and factorization trials by route
+        # ("eager", "capture", "replay"; `_work`, `factorize_with_retry`),
+        # and their graphs (`_direction_graph`, `_trial_graph`)
         self.directions = collections.Counter()
+        self.factorizations = collections.Counter()
         self._graph: "DirectionGraph | None" = None
+        self._trials: "TrialGraph | None" = None
 
     def _scalar(self, p: ProblemArrays, value) -> torch.Tensor:
-        return torch.tensor(value, dtype=self.dtype, device=p.c.device)
+        # a fill on the device: `torch.tensor` would copy from the host
+        return torch.full((), value, dtype=self.dtype, device=p.c.device)
 
     # -- model callbacks (dense; reference L3 eval wrappers) ----------------
 
@@ -238,22 +331,38 @@ class MPCKernel:
         f = self.kkt.factorize(p, pr_diag, del_c)
         return f, self.kkt.factor_ok(f)
 
+    def _trial_graph(self, x) -> "TrialGraph | None":
+        """The kernel's `TrialGraph` where the trials are replayed: on a
+        card, with a KKT that declares its factorization capturable
+        (`capturable_factorize`: nothing in a trial reads back to the
+        host).  None where they run eagerly."""
+        if not (x.is_cuda and getattr(self.kkt, "capturable_factorize", False)):
+            return None
+        if self._trials is None:
+            self._trials = TrialGraph(self)
+        return self._trials
+
     def factorize_with_retry(self, p, x, lb, ub, zl, zu, del_w, del_c):
         """Factorize; on failure escalate both regularizations by 100x, up
         to 3 trials (reference factorize_regularized_system!).  Zero
         regularization is seeded with a small nonzero so singular KKT
-        systems (e.g. rank-deficient A) still factor.
+        systems (e.g. rank-deficient A) still factor.  Each trial runs
+        eagerly or replays the kernel's `TrialGraph` (`_trial_graph`),
+        counted in `factorizations` by route and spanned with it.
 
         Returns (factors, del_w, del_c, ok) with `ok` a host bool."""
+        graph = self._trial_graph(x)
         dw, dc = del_w, del_c
         for trial in range(_MAX_FACT_TRIALS):
-            with span("iter.factorize"):
-                if trial > 0:
-                    dw = torch.where(dw != 0.0, dw * _REG_ESCALATION, 1e-8)
-                    dc = torch.where(dc != 0.0, dc * _REG_ESCALATION, -1e-8)
-                f, ok = self._factorize(p, x, lb, ub, zl, zu, dw, dc)
+            args = (p, x, lb, ub, zl, zu, dw, dc)
+            route = "eager" if graph is None else graph.route(*args)
+            self.factorizations[route] += 1
+            with span("iter.factorize", route):
+                f, ok = (self._factorize if graph is None else graph)(*args)
                 if to_host(ok, "factor_ok"):
                     return f, dw, dc, True
+                if trial + 1 < _MAX_FACT_TRIALS:   # the next trial's, in this one's span
+                    dw, dc = _escalate(dw, dc)
         return f, dw, dc, False
 
     def solve_system(self, p, factors, p_rhs, x, lb, ub, zl, zu, del_w, del_c):

@@ -129,6 +129,9 @@ class DeviceSparseAugmentedKKT:
     # the direction (solves, kkt_mul, the residual check) reads nothing back
     # to the host: MPCKernel replays it as one CUDA graph on a card
     capturable_direction = True
+    # so does a factorization trial (assembly, scaling, fronts, factor_ok):
+    # MPCKernel replays each trial as one CUDA graph on a card
+    capturable_factorize = True
 
     def __init__(self, H: Optional[sp.spmatrix], A: sp.spmatrix, order: str = "auto",
                  max_supernode: int = 128, fact_dtype=None,

@@ -875,3 +875,151 @@ def test_graph_counters_one_capture_per_pattern(cuda, fresh_kernels):
         assert solves[1].kernel is kernel
         assert dict(kernel.directions) == {"eager": 2, "capture": 1,
                                            "replay": iters[0] - 1 + iters[1]}
+
+
+# ---------------------------------------------------------------------------
+# A factorization trial replayed as one CUDA graph (solver/mpc.py
+# `TrialGraph`): sync-free, bit for bit the eager trial
+# ---------------------------------------------------------------------------
+
+
+def _trial_inputs(solver, iterations=3):
+    """The first and the last trial of the iteration after `iterations`
+    calls (the starting point first), eagerly: the first with the
+    iteration's regularization (del_c = 0), which fails on CVXQP, the last
+    escalated until it passes."""
+    from madqp_tpu_torch.solver.mpc import _escalate
+
+    kernel, p = solver.kernel, solver.prob
+    state = kernel.init_state(p, solver._x0, solver._y0, solver._lb0, solver._ub0)
+    for _ in range(iterations):
+        state = kernel.iteration(p, state)
+    dw, dc, _, _ = kernel._work_regularization(p, state)
+    assert float(dc) == 0.0
+    trials = []
+    for _ in range(3):
+        trials.append((p, state.x, state.lb, state.ub, state.zl, state.zu, dw, dc))
+        if bool(kernel._factorize(*trials[-1])[1]):
+            break
+        dw, dc = _escalate(dw, dc)
+    assert len(trials) > 1 and float(trials[-1][-1]) == -1e-8
+    return kernel, trials[0], trials[-1]
+
+
+def _trial_bits(out):
+    """A trial's panels, pivot vectors, global pivots, scale and flag, as
+    copies whose floats compare bit for bit (NaN included)."""
+    from madqp_tpu_torch.solver.mpc import _leaves
+
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    return [t.clone().view(ints.get(t.dtype, t.dtype)) for t in _leaves(out)]
+
+
+def _same(a, b):
+    return len(a) == len(b) and all(u.shape == v.shape and torch.equal(u, v)
+                                    for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("case", ["failing", "passing"])
+def test_replayed_trial_is_bit_equal_to_eager(cuda, fresh_kernels, case):
+    """On the port's CVXQP generator: a trial captured and replayed, then
+    replayed again after a replay on the other trial's regularization,
+    equals the eager `_factorize` bit for bit (panels, pivot vectors,
+    global pivots, scale, `factor_ok`), for the failing first trial
+    (del_c = 0) and the passing one (del_c = -1e-8)."""
+    from madqp_tpu_torch.solver.mpc import TrialGraph
+
+    kernel, failing, passing = _trial_inputs(_cvxqp_solver(cuda))
+    args, other = (failing, passing) if case == "failing" else (passing, failing)
+    eager = _trial_bits(kernel._factorize(*args))
+    assert bool(eager[-1]) is (case == "passing")
+    graph = TrialGraph(kernel)
+    assert graph.route(*args) == "capture"
+    first = _trial_bits(graph(*args))
+    assert graph.route(*other) == "replay"
+    graph(*other)
+    again = _trial_bits(graph(*args))
+    assert _same(first, eager) and _same(again, eager)
+
+
+def test_trial_is_sync_free(cuda, fresh_kernels):
+    """`torch.cuda.set_sync_debug_mode("error")` stays silent around the
+    eager trials (sigma diagonal, factorization, `factor_ok`), the
+    escalation between them, `_scalar` and the replays: the unit slots'
+    fills and the device fill of `_scalar` read nothing back."""
+    from madqp_tpu_torch.solver.mpc import TrialGraph, _escalate
+
+    kernel, failing, passing = _trial_inputs(_cvxqp_solver(cuda))
+    graph = TrialGraph(kernel)
+    graph(*failing)    # the capture synchronizes by design: outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dw, dc = _escalate(*failing[-2:])
+        reg = kernel._scalar(failing[0], 1e-8)
+        eager = [_trial_bits(kernel._factorize(*a)) for a in (failing, failing[:6] + (dw, dc))]
+        replayed = [_trial_bits(graph(*a)) for a in (failing, failing[:6] + (dw, dc))]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(reg) == 1e-8
+    assert all(_same(a, b) for a, b in zip(replayed, eager))
+
+
+def test_solve_through_both_graphs_matches_eager(cuda, fresh_kernels, monkeypatch):
+    """A whole solve with its trials and directions replayed takes the
+    eager solve's status, iterations, objective, solution and multipliers,
+    bit for bit; its trials are one capture (the starting point's first)
+    and replays, as many as the eager solve's trials less that one.  The
+    K2-batched launch counter counts every replay's launches: the eager
+    solve's, and one trial's more (the capture's warm-up)."""
+    from madqp_tpu_torch.ops import ldl_batched as K2
+    from madqp_tpu_torch.ops import sparse_chol as SC
+    from madqp_tpu_torch.solver.sparse_qp import DeviceSparseAugmentedKKT
+
+    solver = _cvxqp_solver(cuda)
+    before = K2.ldl_lower_batched.launches
+    got = solver.solve()
+    launched = K2.ldl_lower_batched.launches - before
+    trials = dict(solver.kernel.factorizations)
+    assert trials.get("eager", 0) == 0 and trials["capture"] == 1
+    assert trials["replay"] == sum(trials.values()) - trials["capture"] > got.iter
+    monkeypatch.setattr(DeviceSparseAugmentedKKT, "capturable_direction", False)
+    monkeypatch.setattr(DeviceSparseAugmentedKKT, "capturable_factorize", False)
+    eager = _cvxqp_solver(cuda)
+    before = K2.ldl_lower_batched.launches
+    want = eager.solve()
+    launched_eager = K2.ldl_lower_batched.launches - before
+    assert eager.kernel is solver.kernel
+    assert eager.kernel.factorizations["eager"] == sum(trials.values())
+    stacks = sum(it.steps if isinstance(it, SC._BucketScan) else
+                 it.count if isinstance(it, SC._Chain) else 1 for it in eager.kernel.kkt.bs.schedule)
+    assert launched_eager == stacks * sum(trials.values())
+    assert launched == launched_eager + stacks
+    assert got.status == want.status == mt.Status.SOLVE_SUCCEEDED
+    assert got.iter == want.iter
+    assert got.objective == want.objective
+    for a, b in [(got.solution, want.solution), (got.multipliers, want.multipliers),
+                 (got.multipliers_L, want.multipliers_L),
+                 (got.multipliers_U, want.multipliers_U)]:
+        np.testing.assert_array_equal(a, b)
+
+
+def test_trial_counters_one_capture_per_pattern(cuda, fresh_kernels):
+    """Two patterns, two solves each: one capture per pattern, the first
+    trial of its first starting point; every later trial a replay, in the
+    counter and in the `iter.factorize` spans' values."""
+    from madqp_tpu_torch.utils import profiling
+
+    for n in (1000, 500):
+        profiling.enable()
+        try:
+            solves = [_cvxqp_solver(cuda, n, seed) for seed in (0, 1)]
+            for solver in solves:
+                solver.solve()
+        finally:
+            profiling.disable()
+        routes = [sp.value for sp in profiling.drain() if sp.name == "iter.factorize"]
+        kernel = solves[0].kernel
+        assert solves[1].kernel is kernel
+        assert routes == ["capture"] + ["replay"] * (len(routes) - 1)
+        assert dict(kernel.factorizations) == {"capture": 1, "replay": len(routes) - 1}
