@@ -52,7 +52,7 @@ import torch
 
 from .blocked_dense import blocked_ldl, inv_unit_lower
 from .pallas_chol import cholesky_lower_routed
-from ..solver.sparse_common import lengths_tensor, segment_sum
+from .segment import lengths_tensor, segment_sum
 
 
 class ScheduleTooLargeError(RuntimeError):

@@ -50,19 +50,11 @@ from ..models.qp import QuadraticProblem, StandardQP, TransformInfo, build_stand
 from ..ops.kkt import torch_dtype
 from ..solver import state as S
 from ..solver.mpc import BatchedMPCKernel, select_lanes, tree_map
+from ..solver.policy import dense_phases, full_f32_products, status_of, sync, user_stats
 from ..solver.state import IPMState, ProblemArrays
-from ..utils import Counters, ExecutionStats, Status, load_options
+from ..utils import Counters, ExecutionStats, load_options
 from ..utils.options import IPMOptions
 from .mesh import Axis, resolve
-
-_STATUS_MAP = {
-    S.SUCCESS: Status.SOLVE_SUCCEEDED,
-    S.MAX_ITER: Status.MAXIMUM_ITERATIONS_EXCEEDED,
-    S.STEP_ERROR: Status.ERROR_IN_STEP_COMPUTATION,
-    S.DIVERGED: Status.DIVERGING_ITERATES,
-    S.STALLED: Status.SOLVED_TO_ACCEPTABLE_LEVEL,
-    S.RUNNING: Status.REGULAR,
-}
 
 
 def pad_standard(
@@ -139,29 +131,12 @@ def unpack_lane(final_host: dict, lane: int, info: TransformInfo, qp: QuadraticP
                 opts: IPMOptions, wall: float, k: int) -> ExecutionStats:
     """The ExecutionStats of one lane of a final state fetched to the host
     (recovered to user coordinates)."""
-    x_user = info.recover_x(np.asarray(final_host["x"][lane], np.float64)[: info.n])
-    y_user = info.recover_y(np.asarray(final_host["y"][lane], np.float64)[: info.m])
-    g_user = qp.grad(x_user)
-    r_fix = g_user + qp.jtprod(y_user)
-    zl_user = info.recover_z(np.asarray(final_host["zl"][lane], np.float64)[: info.n],
-                             np.maximum(r_fix, 0.0))
-    zu_user = info.recover_z(np.asarray(final_host["zu"][lane], np.float64)[: info.n],
-                             np.maximum(-r_fix, 0.0))
-    return ExecutionStats(
-        status=_STATUS_MAP.get(int(final_host["status"][lane]), Status.INTERNAL_ERROR),
-        objective=float(qp.obj(x_user)),
-        solution=x_user,
-        constraints=qp.cons(x_user),
-        multipliers=y_user,
-        multipliers_L=zl_user,
-        multipliers_U=zu_user,
-        iter=k,
-        counters=Counters(total_time=wall, k=k),
-        primal_feas=float(final_host["inf_pr"][lane]),
-        dual_feas=float(final_host["inf_du"][lane]),
-        complementarity=float(final_host["inf_compl"][lane]),
-        options=opts,
-    )
+    def field(name):
+        return final_host[name][lane]
+
+    return user_stats(qp, info, opts, [field(f) for f in ("x", "y", "zl", "zu")],
+                      status_of(field("status")), k, Counters(total_time=wall, k=k),
+                      [field(f) for f in ("inf_pr", "inf_du", "inf_compl")])
 
 
 def state_to_host(final: IPMState) -> dict:
@@ -207,11 +182,7 @@ class BatchedMPCSolver:
         opts, _ = load_options(**options)
         axis = None if mesh is None else resolve(mesh, batch_axis, device)
         device = torch.device(device) if axis is None else axis.device
-        if device.type == "cuda":
-            # Full-f32 products: the float32 factorization's accuracy rests
-            # on them (as in MPCSolver).
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        full_f32_products(device)
         lanes = own_lanes(len(qps), axis)
         built = {i: build_standard_form(qps[i], scaling=opts.scaling,
                                         max_gradient=opts.max_gradient)
@@ -256,21 +227,11 @@ class BatchedMPCSolver:
 
     def _bind_kernels(self):
         """The batched kernel and, for the mixed-precision rescue, the
-        full-precision kernel of phase 2 (the driver's scheme)."""
-        opts = self.opts
-        rescue = (opts.factorization_dtype
-                  and opts.factorization_dtype != opts.dtype
-                  and opts.precision_scheme == "two-phase")
-        if not rescue:
-            self._kernel, self._phase2 = BatchedMPCKernel(opts), None
-            return
-        # f32 lanes run with stall detection armed; lanes that exit
-        # unconverged warm-restart a full-precision phase.
-        self._kernel = BatchedMPCKernel(dataclasses.replace(
-            opts, stall_exit=opts.stall_exit if opts.stall_exit > 0 else 5,
-            max_iter=min(opts.max_iter, opts.phase1_max_iter)))
-        self._phase2 = BatchedMPCKernel(
-            dataclasses.replace(opts, factorization_dtype=""))
+        full-precision kernel of phase 2 (`policy.dense_phases`): lanes
+        that exit phase 1 unconverged warm-restart it."""
+        opts1, opts2 = dense_phases(self.opts)
+        self._kernel = BatchedMPCKernel(opts1)
+        self._phase2 = BatchedMPCKernel(opts2) if opts2 is not None else None
 
     def _host_rescue(self, bad):
         """Re-solve the lanes `bad` one by one on the host path (the
@@ -278,17 +239,9 @@ class BatchedMPCSolver:
         for them."""
         from ..solver.host import HostMPCSolver
 
-        o = self.opts
         for i in sorted(set(int(i) for i in bad)):
-            host = HostMPCSolver(
-                self.qps[i], tol=o.tol, max_iter=o.max_iter,
-                max_ncorr=o.max_ncorr, step_rule=o.step_rule,
-                regularization=o.regularization, scaling=o.scaling,
-                max_gradient=o.max_gradient, barrier_gate=o.barrier_gate,
-                mu_min=o.mu_min, bound_push=o.bound_push, bound_fac=o.bound_fac,
-                bound_relax_factor=o.bound_relax_factor,
-                print_level=max(o.print_level, 30))
-            self._rescue_overrides[i] = host.solve()
+            self._rescue_overrides[i] = HostMPCSolver.from_device_options(
+                self.qps[i], self.opts, print_level=30).solve()
 
     def _solve(self, prob: ProblemArrays) -> IPMState:
         kern, kern2 = self._kernel, self._phase2
@@ -344,8 +297,7 @@ class BatchedMPCSolver:
 
         `prob` optionally overrides the problem values (same shapes)."""
         final = self._solve(prob if prob is not None else self.prob)
-        if final.x.device.type == "cuda":
-            torch.cuda.synchronize(final.x.device)
+        sync(final.x.device)
         return final
 
     def solve_all(self) -> List[ExecutionStats]:

@@ -49,7 +49,8 @@ import torch
 from ..models.qp import QuadraticProblem, build_standard_form_sparse
 from ..ops.kkt import torch_dtype
 from ..solver.mpc import BatchedMPCKernel
-from ..solver.sparse_common import canonical_coo_vals, pattern_fingerprint, two_phase_opts
+from ..solver.policy import full_f32_products, make_sparse_kkt, sparse_phases, sync
+from ..solver.sparse_common import canonical_coo_vals, pattern_fingerprint
 from ..utils import ExecutionStats, load_options
 from .batched import own_lanes, run_lanes, state_to_host, unpack_lane
 from .mesh import resolve
@@ -143,27 +144,15 @@ def solve_sparse_batched(
     use_normal = kkt_system != "augmented" and _diag_hessian(std0.H)
     if kkt_system == "normal" and not _diag_hessian(std0.H):
         raise ValueError("kkt_system='normal' needs an LP or diagonal Hessian.")
-    if device.type == "cuda":
-        # Full-f32 products: a float32 factorization's accuracy rests on them.
-        torch.backends.cuda.matmul.allow_tf32 = False
-
-    two_phase = (opts.factorization_dtype == "float32"
-                 and opts.precision_scheme == "two-phase"
-                 and opts.tol < opts.phase1_tol)
-    opts1, opts2 = two_phase_opts(opts) if two_phase else (opts, None)
-
-    # the solver package imports this one: its sparse KKTs at call time
-    from ..solver.sparse_lp import DeviceSparseNormalKKT
-    from ..solver.sparse_qp import DeviceSparseAugmentedKKT
+    full_f32_products(device)
+    opts1, opts2 = sparse_phases(opts)
 
     def make_kkt(o):
-        fd = o.factorization_dtype or None
-        inv = o.solve_mode == "inverse"
-        if use_normal:
-            return DeviceSparseNormalKKT(std0.A, order=order,
-                                         fact_dtype=fd, inverse=inv)
-        return DeviceSparseAugmentedKKT(std0.H, std0.A, order=order,
-                                        fact_dtype=fd, inverse=inv)
+        # As the JAX package builds them (ROADMAP.md Queue 3, item 31): the
+        # greedy schedule whatever sparse_schedule says, and no CG, so
+        # endgame="krylov"'s phase 2 refactors in float32.
+        return make_sparse_kkt("normal" if use_normal else "augmented", std0, o, order,
+                               schedule_mode="greedy", krylov=False)
 
     fp = fps.pop()
     mkey = _mesh_key(mesh)
@@ -199,7 +188,7 @@ def solve_sparse_batched(
     t0 = time.time()
     final = run_lanes(kern1, prob, kern1.init_state(prob, x0, y0, lb, ub))
     extra = None
-    if two_phase:
+    if opts2 is not None:
         # Phase 2 runs on every lane, warm-started from phase 1's iterate.
         extra = final.k
         kern2 = cached(opts2, "warm_solve", lambda: BatchedMPCKernel(
@@ -207,8 +196,7 @@ def solve_sparse_batched(
         final = run_lanes(kern2, prob, kern2.init_state_warm(
             prob, final.x, final.y, final.zl, final.zu, lb, ub))
         extra = extra.cpu().numpy()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sync(device)
     wall = time.time() - t0
 
     host = state_to_host(final)

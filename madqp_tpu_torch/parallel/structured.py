@@ -60,9 +60,9 @@ from ..ops.kkt import CondensedFactors, DenseCondensedKKT, torch_dtype
 from ..ops.pallas_chol import select_cholesky
 from ..solver import state as S
 from ..solver.mpc import MPCKernel, tree_map
+from ..solver.policy import STATUS_MAP, full_f32_products
 from ..utils import Counters, ExecutionStats, Status, load_options
 from ..utils.profiling import span, to_host
-from .batched import _STATUS_MAP
 from .mesh import Axis, resolve
 
 
@@ -431,11 +431,7 @@ def solve_two_stage(
     opts = opts.replace(kkt_system="schur")
     axis = None if mesh is None else resolve(mesh, scen_axis, device)
     device = torch.device(device) if axis is None else axis.device
-    if device.type == "cuda":
-        # Full-f32 products: the float32 factorization's accuracy rests on
-        # them (as in MPCSolver).
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    full_f32_products(device)
     if axis is not None:
         if prob.N % axis.world:
             raise ValueError(f"{prob.N} scenarios do not split evenly over the "
@@ -462,7 +458,7 @@ def solve_two_stage(
             return to_host(t, "finish", numpy=t.dim() > 0)
 
         return ExecutionStats(
-            status=_STATUS_MAP.get(final.status, Status.INTERNAL_ERROR),
+            status=STATUS_MAP.get(final.status, Status.INTERNAL_ERROR),
             objective=read(final.obj_val),
             solution=read(final.x),
             constraints=read(prob.jac_mv(final.x)),

@@ -59,24 +59,12 @@ from ..utils.profiling import span, to_host
 from . import state as S
 from .certificates import certify_exit_status
 from .mpc import MPCKernel
-
-_STATUS_MAP = {
-    S.SUCCESS: Status.SOLVE_SUCCEEDED,
-    S.MAX_ITER: Status.MAXIMUM_ITERATIONS_EXCEEDED,
-    S.STEP_ERROR: Status.ERROR_IN_STEP_COMPUTATION,
-    S.DIVERGED: Status.DIVERGING_ITERATES,
-    S.STALLED: Status.SOLVED_TO_ACCEPTABLE_LEVEL,
-    S.RUNNING: Status.REGULAR,
-}
+from .policy import (best_time, dense_phases, full_f32_products, make_sparse_kkt, nan_stats,
+                     sparse_phases, status_of, user_stats)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float64).numpy()
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def bucket_shape(n: int, m: int, lo: int = 32) -> tuple[int, int]:
@@ -142,12 +130,7 @@ class MPCSolver:
                 raise ValueError(
                     "sparse-normal KKT supports linear programs and "
                     "diagonal-Hessian QPs; use sparse-augmented.")
-        if self.device.type == "cuda":
-            # The float32 factorization path's accuracy rests on full-f32
-            # products followed by float64 refinement: keep TF32 off for
-            # matmuls and cuDNN (process-wide switches, set explicitly).
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        full_f32_products(self.device)
 
         # Construction-time numeric errors (e.g. too few degrees of
         # freedom) surface as a terminal status from solve(), matching the
@@ -202,8 +185,7 @@ class MPCSolver:
         augmented KKT (its symbolic schedule per pattern, from the pattern
         cache)."""
         from .sparse_common import pattern_fingerprint
-        from .sparse_lp import DeviceSparseNormalKKT, make_problem
-        from .sparse_qp import DeviceSparseAugmentedKKT
+        from .sparse_lp import make_problem
 
         t0 = time.time()
         self.std, self.info, x0_int, y0_int = build_standard_form_sparse(
@@ -211,27 +193,9 @@ class MPCSolver:
             fixed_variable_treatment=opts.fixed_variable_treatment,
             bound_relax_factor=opts.bound_relax_factor,
         )
-        fact_dtype = opts.factorization_dtype or None
-        inverse = opts.solve_mode == "inverse"
-        A, H = self.std.A, self.std.H
-        self._sparse_fp = pattern_fingerprint(A, H)
-        if opts.kkt_system == "sparse-normal":
-            self._sparse_kind = "lp:auto:batched"
-            self._sparse_make = lambda: DeviceSparseNormalKKT(A, fact_dtype=fact_dtype,
-                                                              inverse=inverse)
-            self._sparse_make_f64 = lambda: DeviceSparseNormalKKT(A, inverse=inverse)
-            # the krylov endgame: the float32 factor kept as the
-            # preconditioner of float64 CG
-            self._sparse_make_krylov = lambda: DeviceSparseNormalKKT(
-                A, fact_dtype=fact_dtype, inverse=inverse, krylov=True,
-                krylov_tol=opts.krylov_tol, krylov_maxit=opts.krylov_maxit)
-        else:
-            self._sparse_kind = "qp:auto"
-            self._sparse_make = lambda: DeviceSparseAugmentedKKT(
-                H, A, fact_dtype=fact_dtype, inverse=inverse)
-            self._sparse_make_f64 = lambda: DeviceSparseAugmentedKKT(H, A, inverse=inverse)
-            # no SPD reduction for CG: the krylov endgame refactors in float64
-            self._sparse_make_krylov = None
+        self._sparse_fp = pattern_fingerprint(self.std.A, self.std.H)
+        self._sparse_system = "normal" if opts.kkt_system == "sparse-normal" else "augmented"
+        self._sparse_kind = "lp:auto:batched" if self._sparse_system == "normal" else "qp:auto"
         self._sparse_cfg = (opts.factorization_dtype, opts.solve_mode)
         self._bind_kernel(opts)
         dtype = torch_dtype(opts.dtype)
@@ -245,53 +209,34 @@ class MPCSolver:
     def _bind_sparse_kernel(self, opts: IPMOptions):
         """The sparse path's kernels (`self._sparse_kind`): one, or the
         float32 phase's and the float64 phase's under the two-phase scheme
-        (`sparse_common.two_phase_opts`)."""
-        from .sparse_common import get_sparse_kernel, two_phase_opts
+        (`policy.sparse_phases`)."""
+        from .sparse_common import get_sparse_kernel
 
         if (opts.factorization_dtype, opts.solve_mode) != self._sparse_cfg:
             # a precision or backsolve override changes the KKT's numeric
             # plan: rebuild it on the same pattern
             self._init_sparse(self.qp, opts)
             return
-        kind = self._sparse_kind
-        two_phase = (opts.factorization_dtype == "float32"
-                     and opts.precision_scheme == "two-phase"
-                     and opts.tol < opts.phase1_tol)
-        if not two_phase:
-            _, self.kernel = get_sparse_kernel(kind, self._sparse_fp, opts,
-                                               self._sparse_make)
-            self._phase2 = None
-            return
-        opts1, opts2 = two_phase_opts(opts)
-        make2 = self._sparse_make_f64
-        if opts2.krylov_solve:
-            if self._sparse_make_krylov is None:
-                opts2 = dataclasses.replace(opts2, krylov_solve=False,
-                                            factorization_dtype="")
-            else:
-                make2 = self._sparse_make_krylov
-        _, self.kernel = get_sparse_kernel(kind, self._sparse_fp, opts1, self._sparse_make)
-        _, self._phase2 = get_sparse_kernel(kind, self._sparse_fp, opts2, make2)
+
+        def kernel(o):
+            # The greedy schedule whatever sparse_schedule says, as the JAX
+            # package builds it (ROADMAP.md Queue 3, item 31).
+            return get_sparse_kernel(self._sparse_kind, self._sparse_fp, o, lambda: (
+                make_sparse_kkt(self._sparse_system, self.std, o, schedule_mode="greedy")))[1]
+
+        opts1, opts2 = sparse_phases(opts, cg=self._sparse_system == "normal")
+        self.kernel = kernel(opts1)
+        self._phase2 = kernel(opts2) if opts2 is not None else None
 
     def _bind_kernel(self, opts: IPMOptions):
         """The MPC kernel for `opts` and, for the mixed-precision rescue,
-        the full-precision kernel of phase 2."""
+        the full-precision kernel of phase 2 (`policy.dense_phases`)."""
         if self._sparse:
             self._bind_sparse_kernel(opts)
             return
-        rescue = (opts.factorization_dtype
-                  and opts.factorization_dtype != opts.dtype
-                  and opts.precision_scheme == "two-phase")
-        if not rescue:
-            self.kernel = MPCKernel(opts)
-            self._phase2 = None
-            return
-        opts1 = dataclasses.replace(
-            opts, stall_exit=opts.stall_exit if opts.stall_exit > 0 else 5,
-            max_iter=min(opts.max_iter, opts.phase1_max_iter))
-        opts2 = dataclasses.replace(opts, factorization_dtype="")
+        opts1, opts2 = dense_phases(opts)
         self.kernel = MPCKernel(opts1)
-        self._phase2 = MPCKernel(opts2)
+        self._phase2 = MPCKernel(opts2) if opts2 is not None else None
 
     # ------------------------------------------------------------------
 
@@ -304,15 +249,7 @@ class MPCSolver:
         if self._construct_error is not None:
             status = self._construct_error.status
             self.logger.notice(f"EXIT: {get_status_output(status)}")
-            nan = float("nan")
-            empty = np.full(self.qp.nvar, nan)
-            return ExecutionStats(
-                status=status, objective=nan, solution=empty,
-                constraints=np.full(self.qp.ncon, nan),
-                multipliers=np.full(self.qp.ncon, nan),
-                multipliers_L=empty, multipliers_U=empty,
-                iter=0, counters=self.cnt, options=self.opts,
-            )
+            return nan_stats(self.qp, self.opts, status, self.cnt)
         if kwargs:
             opts, ignored = load_options(
                 **{**_opts_dict(self.opts), **kwargs}
@@ -344,22 +281,23 @@ class MPCSolver:
             f"Variables with lower / upper bounds ............: {nlb} / {nub}\n"
         )
         status = Status.INTERNAL_ERROR
-        final = None
+        final = point = None
         self._walltime_exceeded = False
         try:
             final = self._run_loop()
+            # the final internal (x, y, zl, zu), read once
+            point = [to_host(v, "finish", numpy=True) for v in (final.x, final.y,
+                                                                 final.zl, final.zu)]
             if self._walltime_exceeded:
                 status = Status.MAXIMUM_WALLTIME_EXCEEDED
             else:
-                status = _STATUS_MAP.get(final.status, Status.INTERNAL_ERROR)
                 # Non-convergence with diverging duals is how an IPM
                 # manifests an empty feasible set, and diverging primals
                 # an unbounded objective; upgrade to a *certified* status
                 # when the terminal direction is a Farkas certificate /
                 # descent ray.
-                status = certify_exit_status(
-                    self.std, to_host(final.x, "finish", numpy=True),
-                    to_host(final.y, "finish", numpy=True), status)
+                status = certify_exit_status(self.std, point[0], point[1],
+                                             status_of(final.status))
         except MadQPError as e:
             status = e.status
             if self.opts.rethrow_error:
@@ -369,13 +307,15 @@ class MPCSolver:
             if final is not None:
                 # Reference print_summary (src/solver.jl:394), before EXIT.
                 sign = 1.0 if self.info.minimize else -1.0
+                obj, *residuals = (to_host(v, "finish") for v in (
+                    final.obj_val, final.inf_pr, final.inf_du, final.inf_compl))
                 self.logger.print_summary(
                     iter=final.k,
-                    objective=sign * to_host(final.obj_val, "finish") / self.info.obj_scale,
-                    objective_scaled=to_host(final.obj_val, "finish"),
-                    inf_pr=to_host(final.inf_pr, "finish"),
-                    inf_du=to_host(final.inf_du, "finish"),
-                    inf_compl=to_host(final.inf_compl, "finish"),
+                    objective=sign * obj / self.info.obj_scale,
+                    objective_scaled=obj,
+                    inf_pr=residuals[0],
+                    inf_du=residuals[1],
+                    inf_compl=residuals[2],
                     total_time=cnt.total_time,
                     init_time=cnt.init_time,
                     linear_solver_time=(
@@ -386,26 +326,19 @@ class MPCSolver:
                 )
             self.logger.notice(f"EXIT: {get_status_output(status)}")
 
-        return self._build_stats(final, status)
+        if final is None:
+            return nan_stats(self.qp, self.opts, status, cnt)
+        cnt.k, cnt.factorizations, cnt.backsolves = final.k, final.n_fact, final.n_solve
+        return user_stats(self.qp, self.info, self.opts, point, status, final.k, cnt, residuals)
 
     def _measure_at(self, kernel: MPCKernel, st: S.IPMState, reps: int = 2):
         """Measured wall seconds of (one factorization, one backsolve) at
         iterate `st`, best of `reps`, synchronized with the device."""
         p = self.prob
-
-        def best_of(fn):
-            best, out = float("inf"), None
-            for _ in range(reps):
-                _sync(self.device)
-                t0 = time.perf_counter()
-                out = fn()
-                _sync(self.device)
-                best = min(best, time.perf_counter() - t0)
-            return best, out
-
-        t_fact, (factors, _) = best_of(lambda: kernel._factorize(
-            p, st.x, st.lb, st.ub, st.zl, st.zu, st.del_w, st.del_c))
-        t_solve, _ = best_of(lambda: kernel.kkt.solve(factors, st.x, st.y))
+        t_fact, (factors, _) = best_time(lambda _i: kernel._factorize(
+            p, st.x, st.lb, st.ub, st.zl, st.zu, st.del_w, st.del_c), self.device, reps)
+        t_solve, _ = best_time(lambda _i: kernel.kkt.solve(factors, st.x, st.y),
+                               self.device, reps)
         return t_fact, t_solve
 
     def set_initial_point(self, x=None, y=None, zl=None, zu=None):
@@ -545,58 +478,6 @@ class MPCSolver:
             self._lb0, self._ub0)
         state2 = run(self._phase2, state2, k1)
         return state2._replace(k=state.k + state2.k)
-
-    # ------------------------------------------------------------------
-
-    def _build_stats(self, final, status: Status) -> ExecutionStats:
-        info = self.info
-        cnt = self.cnt
-        if final is None:
-            nan = float("nan")
-            empty = np.full(info.nvar, nan)
-            return ExecutionStats(
-                status=status, objective=nan, solution=empty,
-                constraints=np.full(info.ncon, nan), multipliers=np.full(info.ncon, nan),
-                multipliers_L=empty, multipliers_U=empty,
-                iter=0, counters=cnt, options=self.opts,
-            )
-        cnt.k = final.k
-        cnt.factorizations = final.n_fact
-        cnt.backsolves = final.n_solve
-
-        x_int = to_host(final.x, "finish", numpy=True)[: info.n]
-        y_int = to_host(final.y, "finish", numpy=True)[: info.m]
-        zl_int = to_host(final.zl, "finish", numpy=True)[: info.n]
-        zu_int = to_host(final.zu, "finish", numpy=True)[: info.n]
-
-        x_user = info.recover_x(x_int)
-        y_user = info.recover_y(y_int)
-        # Fixed variables report their reduced cost as bound multipliers.
-        g_user = self.qp.grad(x_user)
-        r_fix = g_user + self.qp.jtprod(y_user)
-        zl_fill = np.maximum(r_fix, 0.0)
-        zu_fill = np.maximum(-r_fix, 0.0)
-        zl_user = info.recover_z(zl_int, zl_fill)
-        zu_user = info.recover_z(zu_int, zu_fill)
-
-        objective = self.qp.obj(x_user)
-        constraints = self.qp.cons(x_user)
-
-        return ExecutionStats(
-            status=status,
-            objective=float(objective),
-            solution=x_user,
-            constraints=constraints,
-            multipliers=y_user,
-            multipliers_L=zl_user,
-            multipliers_U=zu_user,
-            iter=final.k,
-            counters=cnt,
-            primal_feas=to_host(final.inf_pr, "finish"),
-            dual_feas=to_host(final.inf_du, "finish"),
-            complementarity=to_host(final.inf_compl, "finish"),
-            options=self.opts,
-        )
 
 
 def _opts_dict(opts: IPMOptions) -> dict:

@@ -46,7 +46,8 @@ from ..utils.options import (
     MehrotraAdaptiveStep,
     NoRegularization,
 )
-from .certificates import certify_exit_status, farkas_certificate, unbounded_certificate
+from .certificates import farkas_certificate, unbounded_certificate
+from .policy import user_stats
 
 _MAX_FACT_TRIALS = 3
 _REG_ESCALATION = 100.0
@@ -223,6 +224,26 @@ class HostMPCSolver:
         self.cnt = Counters(start_time=t0, init_time=time.time() - t0)
         self.eps = float(np.finfo(np.float64).eps)
         self._warm = None
+
+    @classmethod
+    def from_device_options(cls, qp: QuadraticProblem, opts, kkt_system: Optional[str] = None,
+                            print_level: int = 25) -> "HostMPCSolver":
+        """The host solver of a device solve's fallback (the sparse drivers'
+        host endgame and whole-solve route, the batch's host rescue), with
+        the device solve's options `opts` (its tolerance, iteration cap,
+        correctors, step rule, regularization, scaling, barrier gate and
+        starting-point fields), printing at `print_level` or less, and the
+        host's `kkt_system` ("normal", or the K2 system; None: the options'
+        default)."""
+        kw = {} if kkt_system is None else dict(kkt_system=kkt_system)
+        return cls(
+            qp, tol=opts.tol, max_iter=opts.max_iter, max_ncorr=opts.max_ncorr,
+            step_rule=opts.step_rule, regularization=opts.regularization,
+            print_level=max(opts.print_level, print_level),
+            scaling=opts.scaling, max_gradient=opts.max_gradient,
+            barrier_gate=opts.barrier_gate, mu_min=opts.mu_min,
+            bound_push=opts.bound_push, bound_fac=opts.bound_fac,
+            bound_relax_factor=opts.bound_relax_factor, **kw)
 
     def set_initial_point_internal(self, x, y, zl, zu):
         """Warm start from an INTERNAL-space primal-dual point (the same
@@ -517,32 +538,11 @@ class HostMPCSolver:
             cnt.k = k
 
         cnt.total_time = time.time() - cnt.start_time
-        # Exit-time certification, as in the device driver.
-        status = certify_exit_status(self.std, _np(x), _np(y), status)
-        log.notice(f"EXIT: {get_status_output(status)}")
-
-        info = self.info
-        x_user = info.recover_x(_np(x))
-        y_user = info.recover_y(_np(y))
-        g_user = self.qp.grad(x_user)
-        r_fix = g_user + self.qp.jtprod(y_user)
-        zl_user = info.recover_z(_np(zl), np.maximum(r_fix, 0.0))
-        zu_user = info.recover_z(_np(zu), np.maximum(-r_fix, 0.0))
-        return ExecutionStats(
-            status=status,
-            objective=float(self.qp.obj(x_user)),
-            solution=x_user,
-            constraints=self.qp.cons(x_user),
-            multipliers=y_user,
-            multipliers_L=zl_user,
-            multipliers_U=zu_user,
-            iter=k,
-            counters=cnt,
-            primal_feas=inf_pr,
-            dual_feas=inf_du,
-            complementarity=inf_compl,
-            options=opts,
-        )
+        # Exit-time certification (`std`), as in the device driver.
+        stats = user_stats(self.qp, self.info, opts, [_np(v) for v in (x, y, zl, zu)], status,
+                           k, cnt, (inf_pr, inf_du, inf_compl), std=self.std)
+        log.notice(f"EXIT: {get_status_output(stats.status)}")
+        return stats
 
 
 def solve_host(qp: QuadraticProblem, **kwargs) -> ExecutionStats:

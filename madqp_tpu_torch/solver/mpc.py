@@ -127,7 +127,7 @@ def _leaves(tree) -> list:
 def _signature(leaves) -> tuple:
     """What a captured graph depends on besides the tensors' values: each
     tensor's shape, strides, dtype, device and host-kept segment total
-    (`sparse_common.lengths_tensor`), and every other leaf as it is."""
+    (`ops/segment.py::lengths_tensor`), and every other leaf as it is."""
     return tuple((t.shape, t.stride(), t.dtype, t.device, getattr(t, "segment_total", None))
                  if isinstance(t, torch.Tensor) else t for t in leaves)
 
@@ -817,8 +817,8 @@ class BatchedMPCKernel(MPCKernel):
             if not to_host(retry.any(), "retry"):
                 break
             with span("iter.factorize"):
-                dw = torch.where(retry, torch.where(dw != 0.0, dw * _REG_ESCALATION, 1e-8), dw)
-                dc = torch.where(retry, torch.where(dc != 0.0, dc * _REG_ESCALATION, -1e-8), dc)
+                up_w, up_c = _escalate(dw, dc)
+                dw, dc = torch.where(retry, up_w, dw), torch.where(retry, up_c, dc)
                 f_new, ok_new = self._factorize(p, x, lb, ub, zl, zu, dw, dc)
                 f = select_lanes(retry, f_new, f)
                 ok = torch.where(retry, ok_new, ok)

@@ -9,8 +9,9 @@
   fingerprint, options), so repeated solves of problems with one pattern
   reuse the KKT's symbolic work (its contribution lists);
 - `stepped_solve`: the host-stepped MPC loop of the sparse drivers;
-- `resolve_endgame`, `two_phase_opts`, `measure_sparse_ls`: the two-phase
-  scheme's option split and the post-solve linear-solver timing.
+- `resolve_endgame`, `measure_sparse_ls`: endgame="auto"'s resolution and
+  the post-solve linear-solver timing (the two-phase scheme's option split
+  is `policy.sparse_phases`).
 
 The JAX package's executable cache and its compile plumbing
 (`_exec_cache_dir`, `_exec_cache_key`, `_load_or_compile`,
@@ -24,7 +25,6 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import time
 from collections import OrderedDict
 from typing import Optional
 
@@ -36,6 +36,7 @@ from ..ops import kernels as K
 from ..utils.profiling import span
 from . import state as S
 from .mpc import MPCKernel
+from .policy import best_time
 
 
 def canonical_csc(M: sp.spmatrix) -> sp.csc_matrix:
@@ -65,63 +66,6 @@ def pattern_fingerprint(A: sp.spmatrix,
         h.update(M.indptr.astype(np.int64).tobytes())
         h.update(M.indices.astype(np.int64).tobytes())
     return h.hexdigest()
-
-
-def lengths_tensor(lengths, total: int, device) -> torch.Tensor:
-    """The segment lengths of a sum over `total` values as an int64 tensor
-    on `device`, checked where the index lists are built (none negative,
-    and they add up to `total`; ValueError otherwise), their total kept
-    beside them on the host (the tensor's `segment_total`): `segment_sum`
-    checks each call against it without reading the device."""
-    lengths = np.asarray(lengths, np.int64)
-    if lengths.size and lengths.min() < 0:
-        raise ValueError(f"segment lengths hold a negative count ({lengths.min()})")
-    if int(lengths.sum()) != total:
-        raise ValueError(f"segment lengths add up to {int(lengths.sum())}, not {total}")
-    t = torch.as_tensor(lengths, device=device)
-    t.segment_total = int(total)
-    return t
-
-
-def segments(index: np.ndarray, size: int):
-    """(order, lengths) for a deterministic segment sum by `index`: a stable
-    sort of the entries by segment, and the entry count of each of the
-    `size` segments.  `segment_sum(v, lengths, order)` then adds each
-    segment's entries in their original order (as the JAX package's
-    scatter-add on the CPU does); on the card it needs no atomics, so two
-    runs give the same bits."""
-    index = np.asarray(index, np.int64)
-    order = np.argsort(index, kind="stable")
-    return order, np.bincount(index, minlength=size)
-
-
-def segment_sum(values: torch.Tensor, lengths: torch.Tensor,
-                order: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Sum of `values` by segment along their last axis, through
-    `segments`' (order, lengths) as tensors on the values' device (order
-    None: `values` is already in segment order); an empty segment gives 0.
-    Leading axes are lanes (a batch of instances sharing the index lists):
-    each lane's sums are taken in the order of a single instance's.
-
-    `lengths` come from `lengths_tensor`, checked there once: each call
-    compares the values' count with their host-kept total, and
-    `torch.segment_reduce` skips its own checks (`unsafe=True`), which read
-    the lengths back from the device and so drain the card's queue.  The
-    kernel and the order of the additions are the same, and so are the
-    bits."""
-    count = values.shape[-1] if order is None else order.shape[-1]
-    total = getattr(lengths, "segment_total", None)
-    if count != total:
-        raise ValueError(f"segment_sum: {count} values against segment lengths of total "
-                         f"{total} (lengths come from lengths_tensor)")
-    lanes = values.shape[:-1]
-    if values.shape[-1] == 0:
-        return values.new_zeros(lanes + lengths.shape)
-    if order is not None:
-        values = values[..., order]
-    if lanes:
-        lengths = lengths.expand(lanes + lengths.shape)
-    return torch.segment_reduce(values, "sum", lengths=lengths, axis=-1, unsafe=True)
 
 
 def upper_lookup(U: sp.csc_matrix):
@@ -200,37 +144,6 @@ def resolve_endgame(opts):
     return dataclasses.replace(opts, endgame="host" if available() else "f64")
 
 
-def two_phase_opts(opts, typed_phase1=False):
-    """Split options for the two-phase mixed-precision scheme.
-
-    typed_phase1: honor options.phase1_dtype for the phase-1 state (the
-    caller then builds the problem arrays per phase and casts the warm
-    start on handoff, as solver/sparse_lp.py does).
-
-    Phase 1 (float32): solve to phase1_tol with stall detection on (a
-    float32 kernel at its precision floor burns iterations and degrades
-    the warm start it hands over).  Phase 2 (float64): the phase-1-only
-    fields are normalized away."""
-    opts1 = dataclasses.replace(
-        opts, tol=opts.phase1_tol,
-        stall_exit=opts.stall_exit if opts.stall_exit > 0 else 5,
-        max_iter=min(opts.max_iter, opts.phase1_max_iter),
-        dtype=(opts.phase1_dtype or opts.dtype) if typed_phase1
-        else opts.dtype,
-    )
-    if opts.endgame == "krylov":
-        opts2 = dataclasses.replace(opts, phase1_tol=0.0, krylov_solve=True)
-    else:
-        opts2 = dataclasses.replace(opts, factorization_dtype="",
-                                    phase1_tol=0.0)
-    return opts1, opts2
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def measure_sparse_ls(kkt, prob, final, lb, ub, reps=3):
     """Measured cumulative factorize + backsolve seconds at the terminal
     iterate, scaled by the recorded counts (reference
@@ -241,17 +154,6 @@ def measure_sparse_ls(kkt, prob, final, lb, ub, reps=3):
     device = final.x.device
     eps = 10.0 * float(torch.finfo(final.x.dtype).eps)
 
-    def best_of(fn):
-        best, out = float("inf"), None
-        for i in range(reps + 1):  # rep 0 is the warm-up
-            _sync(device)
-            t0 = time.perf_counter()
-            out = fn(i)
-            _sync(device)
-            if i > 0:
-                best = min(best, time.perf_counter() - t0)
-        return best, out
-
     def fact(i):
         x = final.x * (1.0 + eps * i)
         pr = K.sigma_diagonal(x, lb, ub, prob.has_lb, prob.has_ub,
@@ -260,7 +162,7 @@ def measure_sparse_ls(kkt, prob, final, lb, ub, reps=3):
         kkt.factor_ok(f)
         return f
 
-    t_fact, factors = best_of(fact)
-    t_solve, _ = best_of(lambda i: kkt.solve(factors, final.x * (1.0 + eps * i),
-                                             final.y))
+    t_fact, factors = best_time(fact, device, reps, warmup=1)
+    t_solve, _ = best_time(lambda i: kkt.solve(factors, final.x * (1.0 + eps * i), final.y),
+                           device, reps, warmup=1)
     return t_fact * int(final.n_fact) + t_solve * int(final.n_solve)

@@ -42,10 +42,11 @@ from ..models.qp import QuadraticProblem, build_standard_form_sparse
 from ..ops import sparse_chol as SC
 from ..ops.kkt import torch_dtype
 from ..ops.krylov import pcg
+from ..ops.segment import lengths_tensor, segment_sum, segments
 from ..utils import load_options
-from .sparse_common import (canonical_csc, get_sparse_kernel, lengths_tensor,
-                            pattern_fingerprint, resolve_endgame, segment_sum, segments,
-                            two_phase_opts, upper_lookup, value_gather)
+from .policy import full_f32_products, make_sparse_kkt, sparse_phases
+from .sparse_common import (canonical_csc, get_sparse_kernel, pattern_fingerprint,
+                            resolve_endgame, upper_lookup, value_gather)
 from .sparse_lp import _pair_lists, problem_arrays
 from .sparse_qp import _host_full_solve, _solve_phases
 
@@ -292,29 +293,17 @@ def solve_sparse_condensed(qp: QuadraticProblem, order: str = "auto",
     n0 = std.A.shape[1] - m
     if n0 < 0 or len(info.ineq_rows) != m:
         raise AssertionError("condensed path requires every row slacked")
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
+    full_f32_products(device)
     fp = pattern_fingerprint(std.A, std.H)
-    A0 = std.A[:, :n0].tocsc()
-    H0 = None if std.H is None else std.H[:n0, :n0].tocsc()
 
     def kernel_for(o):
-        return get_sparse_kernel(
-            f"cond:{order}", fp, o,
-            lambda: DeviceSparseCondensedKKT(H0, A0, order=order,
-                                             fact_dtype=o.factorization_dtype or None,
-                                             inverse=(o.solve_mode == "inverse"),
-                                             krylov=o.krylov_solve, krylov_tol=o.krylov_tol,
-                                             krylov_maxit=o.krylov_maxit,
-                                             schedule_mode=o.sparse_schedule))
+        return get_sparse_kernel(f"cond:{order}", fp, o,
+                                 lambda: make_sparse_kkt("condensed", std, o, order))
 
-    two_phase = (opts.factorization_dtype == "float32"
-                 and opts.precision_scheme == "two-phase"
-                 and opts.tol < opts.phase1_tol)
     # typed_phase1 stays off: the elimination's D = (Σs⁻¹ − δ_c)⁻¹ breaks
     # down with a float32 state; the float64-state / float32-factorization
     # scheme is kept instead (the JAX package's choice).
-    opts1, opts2 = two_phase_opts(opts) if two_phase else (opts, None)
+    opts1, opts2 = sparse_phases(opts)
     try:
         kkt, kernel = kernel_for(opts1)
     except SC.ScheduleTooLargeError:
@@ -329,4 +318,4 @@ def solve_sparse_condensed(qp: QuadraticProblem, order: str = "auto",
     # the host endgame on the RELAXED problem, which this standard form was
     # built from
     return _solve_phases(qp, info, std, opts, t0, device, (kkt, kernel, (prob, lb, ub, x0d, y0d)),
-                         phase2 if two_phase else None, host_qp=qp_rel)
+                         phase2 if opts2 is not None else None, host_qp=qp_rel)

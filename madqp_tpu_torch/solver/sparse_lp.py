@@ -56,11 +56,11 @@ from ..ops import sparse_chol as SC
 from ..ops.blocked_dense import factor_inv_chol
 from ..ops.kkt import torch_dtype
 from ..ops.krylov import pcg
+from ..ops.segment import lengths_tensor, segment_sum, segments
 from ..utils import load_options
+from .policy import full_f32_products, make_sparse_kkt, sparse_phases
 from .sparse_common import (canonical_coo_vals, canonical_csc, get_sparse_kernel,
-                            lengths_tensor, pattern_fingerprint, resolve_endgame,
-                            segment_sum, segments, two_phase_opts,
-                            upper_lookup, value_gather)
+                            pattern_fingerprint, resolve_endgame, upper_lookup, value_gather)
 from .sparse_qp import SparseQPProblem, _host_full_solve, _solve_phases
 
 
@@ -69,7 +69,7 @@ class SparseLPProblem(NamedTuple):
     `solver/state.py::ProblemArrays`; `H` is absent).
 
     `a_row_order` / `a_row_len` and `a_col_order` / `a_col_len` are the
-    (order, lengths) of `sparse_common.segments` for the row and column
+    (order, lengths) of `ops/segment.py::segments` for the row and column
     sums of the matvecs.  A batch of same-pattern instances
     (`parallel/sparse_batched.py`) puts a leading lane axis on the value
     fields (c0, c, b, has_lb, has_ub, a_vals) and shares the index lists."""
@@ -465,27 +465,16 @@ def solve_sparse_lp(qp: QuadraticProblem, order: str = "auto",
                 "(use solve_sparse_qp for general sparse QPs).")
     if mode == "auto":
         mode = "dense" if std.A.shape[0] <= opts.dense_normal_limit else "batched"
-    two_phase = (opts.factorization_dtype == "float32"
-                 and opts.precision_scheme == "two-phase"
-                 and opts.tol < opts.phase1_tol)
-    if device.type == "cuda":
-        # Full-f32 products: a float32 factorization's accuracy rests on them.
-        torch.backends.cuda.matmul.allow_tf32 = False
+    full_f32_products(device)
     fp = pattern_fingerprint(std.A, std.H)
 
     def kernel_for(o):
         # Pattern-keyed reuse: same sparsity and options => no symbolic
         # re-analysis (values are the problem arrays').
-        return get_sparse_kernel(
-            f"lp:{order}:{mode}", fp, o,
-            lambda: DeviceSparseNormalKKT(std.A, order=order, mode=mode,
-                                          fact_dtype=o.factorization_dtype or None,
-                                          inverse=(o.solve_mode == "inverse"),
-                                          krylov=o.krylov_solve, krylov_tol=o.krylov_tol,
-                                          krylov_maxit=o.krylov_maxit,
-                                          schedule_mode=o.sparse_schedule))
+        return get_sparse_kernel(f"lp:{order}:{mode}", fp, o,
+                                 lambda: make_sparse_kkt("normal", std, o, order, mode))
 
-    opts1, opts2 = two_phase_opts(opts, typed_phase1=True) if two_phase else (opts, None)
+    opts1, opts2 = sparse_phases(opts, typed_phase1=True)
     try:
         kkt, kernel = kernel_for(opts1)
     except SC.ScheduleTooLargeError:
@@ -502,5 +491,6 @@ def solve_sparse_lp(qp: QuadraticProblem, order: str = "auto",
     # to the host K2 system, whose fill follows nnz(A).
     return _solve_phases(qp, info, std, opts, t0, device,
                          (kkt, kernel, problem_arrays(std, kkt, x0, y0, opts1.dtype, device)),
-                         phase2 if two_phase else None, host_kkt="k2" if kkt.assembly == "matmul" else "normal",
+                         phase2 if opts2 is not None else None,
+                         host_kkt="k2" if kkt.assembly == "matmul" else "normal",
                          eg_backend="device-" + opts.endgame)

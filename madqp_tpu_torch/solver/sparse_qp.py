@@ -22,8 +22,8 @@ pivot-free LDLᵀ.
 a diagonal-Hessian QP goes to the normal equations (`solve_sparse_lp`),
 "condensed" (and "auto" on an inequality-only QP whose AᵀA stays sparse,
 `_condensed_auto_ok`) to `solve_sparse_condensed`, the rest to the
-augmented system.  `finish_stats` maps a terminal state to user
-coordinates; `_host_endgame` finishes a two-phase solve on the host path
+augmented system.  `_solve_phases` is the sparse drivers' shared tail;
+`_host_endgame` finishes a two-phase solve on the host path
 (`HostMPCSolver` warm-started from the float32 iterate, with its cold
 retry); `_host_full_solve` runs a whole solve there (a schedule above
 MADQP_MAX_UPDATE_ENTRIES).
@@ -42,19 +42,19 @@ import torch
 from ..models.qp import QuadraticProblem, build_standard_form_sparse
 from ..ops import sparse_chol as SC
 from ..ops.kkt import torch_dtype
-from ..utils import Counters, ExecutionStats, Status, load_options
-from .certificates import certify_exit_status
-from .driver import _STATUS_MAP
-from .sparse_common import (canonical_csc, get_sparse_kernel, lengths_tensor, measure_sparse_ls,
-                            pattern_fingerprint, resolve_endgame, segment_sum, segments,
-                            stepped_solve, two_phase_opts, upper_lookup, value_gather)
+from ..ops.segment import lengths_tensor, segment_sum, segments
+from ..utils import Counters, Status, load_options
+from .policy import full_f32_products, make_sparse_kkt, sparse_phases, status_of, sync, user_stats
+from .sparse_common import (canonical_csc, get_sparse_kernel, measure_sparse_ls,
+                            pattern_fingerprint, resolve_endgame, stepped_solve, upper_lookup,
+                            value_gather)
 
 
 class SparseQPProblem(NamedTuple):
     """QP data with COO Jacobian and Hessian on the device (the protocol of
     `solver/state.py::ProblemArrays`).  `h_*` hold the FULL symmetric
     Hessian (both triangles), so `hess_mv` is one segment sum; the
-    `*_order` / `*_len` fields are `sparse_common.segments`' for the row
+    `*_order` / `*_len` fields are `ops/segment.py::segments`' for the row
     and column sums.  A batch of same-pattern instances
     (`parallel/sparse_batched.py`) puts a leading lane axis on the value
     fields (c0, c, b, has_lb, has_ub, a_vals, h_vals) and shares the index
@@ -271,71 +271,15 @@ def _host_array(t) -> np.ndarray:
     return t.detach().to("cpu", torch.float64).numpy()
 
 
-def finish_stats(qp: QuadraticProblem, info, opts, final, wall,
-                 extra_iters: int = 0, std=None, ls_time=None,
-                 endgame_time: float = 0.0, endgame_backend: str = ""):
-    """Map the internal terminal IPM state back to user coordinates and
-    package ExecutionStats (shared by the sparse device drivers).
-    extra_iters: iterations of an earlier phase (two-phase mixed
-    precision) to include in the count.  std: the internal standard form;
-    when given, non-convergent exits are upgraded to certified
-    infeasible / unbounded statuses (as the dense driver does).  ls_time:
-    measured factorize + backsolve seconds (measure_sparse_ls); None
-    leaves the counter at its 'not measured' default."""
-    status = _STATUS_MAP.get(int(final.status), Status.INTERNAL_ERROR)
-    x = _host_array(final.x)[: info.n]
-    y = _host_array(final.y)[: info.m]
-    if std is not None:
-        status = certify_exit_status(std, x, y, status)
-    x_user = info.recover_x(x)
-    y_user = info.recover_y(y)
-    g_user = qp.grad(x_user)
-    r_fix = g_user + qp.jtprod(y_user)
-    zl_user = info.recover_z(_host_array(final.zl)[: info.n], np.maximum(r_fix, 0.0))
-    zu_user = info.recover_z(_host_array(final.zu)[: info.n], np.maximum(-r_fix, 0.0))
-    k = int(final.k) + extra_iters
-    return ExecutionStats(
-        status=status,
-        objective=float(qp.obj(x_user)),
-        solution=x_user,
-        constraints=qp.cons(x_user),
-        multipliers=y_user,
-        multipliers_L=zl_user,
-        multipliers_U=zu_user,
-        iter=k,
-        counters=Counters(total_time=wall, k=k,
-                          linear_solver_time=ls_time if ls_time is not None else 0.0,
-                          endgame_time=endgame_time,
-                          endgame_backend=endgame_backend),
-        primal_feas=float(final.inf_pr),
-        dual_feas=float(final.inf_du),
-        complementarity=float(final.inf_compl),
-        options=opts,
-    )
-
-
-def _host_solver(qp, opts, kkt_system):
-    """The host solver with the device solve's options."""
-    from .host import HostMPCSolver
-
-    return HostMPCSolver(
-        qp, tol=opts.tol, max_iter=opts.max_iter, max_ncorr=opts.max_ncorr,
-        step_rule=opts.step_rule, regularization=opts.regularization,
-        kkt_system=kkt_system, print_level=max(opts.print_level, 25),
-        scaling=opts.scaling, max_gradient=opts.max_gradient,
-        barrier_gate=opts.barrier_gate, mu_min=opts.mu_min,
-        bound_push=opts.bound_push, bound_fac=opts.bound_fac,
-        bound_relax_factor=opts.bound_relax_factor,
-    )
-
-
 def _host_full_solve(qp, opts, t0, kkt_system="k2"):
     """The whole solve on the host path, for a pattern the device schedule
     cannot hold.  The entire wall is endgame_time, with
     endgame_backend='host-full', so no record reads it as device time;
     `t0` is the caller's entry time, so total_time covers the
     standard-form build and the failed symbolic phase too."""
-    stats = _host_solver(qp, opts, kkt_system).solve()
+    from .host import HostMPCSolver
+
+    stats = HostMPCSolver.from_device_options(qp, opts, kkt_system).solve()
     stats.counters.total_time = time.time() - t0
     stats.counters.endgame_time = stats.counters.total_time
     stats.counters.endgame_backend = "host-full"
@@ -347,7 +291,9 @@ def _host_endgame(qp, opts, final, info, std, t0, kkt_system="k2"):
     warm-start HostMPCSolver (native C++ LDL) from the device float32
     phase's terminal iterate.  Coordinates match because HostMPCSolver
     builds the identical standard form."""
-    host = _host_solver(qp, opts, kkt_system)
+    from .host import HostMPCSolver
+
+    host = HostMPCSolver.from_device_options(qp, opts, kkt_system)
     n, m = host.prob.n, host.prob.m
     assert n == std.A.shape[1] and m == std.A.shape[0], (
         "host endgame standard form mismatch")
@@ -369,7 +315,7 @@ def _host_endgame(qp, opts, final, info, std, t0, kkt_system="k2"):
         # host's own Mehrotra starting point (the reference's retry
         # philosophy, src/linear_solver.jl:6-17); the float32 phase's
         # iterations are not counted then.
-        stats = _host_solver(qp, opts, kkt_system).solve()
+        stats = HostMPCSolver.from_device_options(qp, opts, kkt_system).solve()
         extra = 0
         eg_backend = "host-cold"
     stats.counters.endgame_time = time.time() - eg_t0
@@ -412,11 +358,15 @@ def _solve_phases(qp, info, std, opts, t0, device, phase1, phase2=None, host_qp=
         eg_time = time.time() - eg_t0
         if ls_time is not None:
             ls_time += measure_sparse_ls(kkt2, prob2, final, lb2, ub2)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return finish_stats(qp, info, opts, final, time.time() - t0, extra_iters=extra,
-                        std=std, ls_time=ls_time, endgame_time=eg_time,
-                        endgame_backend=backend)
+    sync(device)
+    k = int(final.k) + extra
+    counters = Counters(total_time=time.time() - t0, k=k,
+                        linear_solver_time=ls_time if ls_time is not None else 0.0,
+                        endgame_time=eg_time, endgame_backend=backend)
+    point = [_host_array(v) for v in (final.x, final.y, final.zl, final.zu)]
+    residuals = [float(v) for v in (final.inf_pr, final.inf_du, final.inf_compl)]
+    return user_stats(qp, info, opts, point, status_of(final.status), k, counters, residuals,
+                      std=std)
 
 
 def _condensed_auto_ok(qp: QuadraticProblem, fill_cap: float = 4.0) -> bool:
@@ -493,29 +443,16 @@ def solve_sparse_qp(qp: QuadraticProblem, order: str = "auto",
     opts = resolve_endgame(opts)
     std, info, x0, y0 = build_standard_form_sparse(
         qp, scaling=opts.scaling, max_gradient=opts.max_gradient)
-    if device.type == "cuda":
-        # Full-f32 products: a float32 factorization's accuracy rests on them.
-        torch.backends.cuda.matmul.allow_tf32 = False
+    full_f32_products(device)
     fp = pattern_fingerprint(std.A, std.H)
 
     def kernel_for(o):
         # Pattern-keyed reuse: same sparsity and options => no symbolic
         # re-analysis (values are the problem arrays').
-        return get_sparse_kernel(
-            f"qp:{order}", fp, o,
-            lambda: DeviceSparseAugmentedKKT(std.H, std.A, order=order,
-                                             fact_dtype=o.factorization_dtype or None,
-                                             inverse=(o.solve_mode == "inverse"),
-                                             schedule_mode=o.sparse_schedule))
+        return get_sparse_kernel(f"qp:{order}", fp, o,
+                                 lambda: make_sparse_kkt("augmented", std, o, order))
 
-    two_phase = (opts.factorization_dtype == "float32"
-                 and opts.precision_scheme == "two-phase"
-                 and opts.tol < opts.phase1_tol)
-    opts1, opts2 = two_phase_opts(opts, typed_phase1=True) if two_phase else (opts, None)
-    if two_phase and opts2.krylov_solve:
-        # The augmented KKT has no SPD reduction, so endgame="krylov" falls
-        # back to the float64 refactorization here.
-        opts2 = dataclasses.replace(opts2, krylov_solve=False, factorization_dtype="")
+    opts1, opts2 = sparse_phases(opts, typed_phase1=True, cg=False)
     try:
         kkt, kernel = kernel_for(opts1)
     except SC.ScheduleTooLargeError:
@@ -529,4 +466,4 @@ def solve_sparse_qp(qp: QuadraticProblem, order: str = "auto",
 
     return _solve_phases(qp, info, std, opts, t0, device,
                          (kkt, kernel, problem_arrays(std, kkt, x0, y0, opts1.dtype, device)),
-                         phase2 if two_phase else None)
+                         phase2 if opts2 is not None else None)

@@ -48,6 +48,7 @@ from madqp_tpu.solver import sparse_common as JC
 from madqp_tpu.solver import sparse_lp as JL
 from madqp_tpu.solver import sparse_qp as JQ
 from madqp_tpu_torch.solver import sparse_common as TC
+from madqp_tpu_torch.solver import policy as TP
 from madqp_tpu_torch.solver import sparse_lp as TL
 from madqp_tpu_torch.solver import sparse_qp as TQ
 
@@ -451,7 +452,7 @@ def test_two_phase_opts_match_reference():
                dict(factorization_dtype="float32", max_iter=40, endgame="f64"),
                dict(factorization_dtype="float32", endgame="krylov", stall_exit=3)):
         for typed in (False, True):
-            got = TC.two_phase_opts(TOpts(**kw), typed_phase1=typed)
+            got = TP.two_phase_opts(TOpts(**kw), typed_phase1=typed)
             want = JC.two_phase_opts(JOpts(**kw), typed_phase1=typed)
             for g, w in zip(got, want):
                 assert {f: getattr(g, f) for f in ("tol", "stall_exit", "max_iter", "dtype",

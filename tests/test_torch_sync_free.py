@@ -1,6 +1,6 @@
 """The sparse direction without host reads, on the CPU.
 
-* `solver/sparse_common.py::segment_sum` calls `torch.segment_reduce` with
+* `ops/segment.py::segment_sum` calls `torch.segment_reduce` with
   `unsafe=True`: bit for bit the checked call, over lanes, empty segments
   and a given order.  The check it skips is made once where the index
   lists are built (`lengths_tensor`), and each call compares the values'
@@ -35,7 +35,7 @@ import torch
 import madqp_tpu_torch as mt
 from madqp_tpu_torch.ops import sparse_chol as SC
 from madqp_tpu_torch.solver import mpc
-from madqp_tpu_torch.solver import sparse_common as C
+from madqp_tpu_torch.ops import segment as C
 from madqp_tpu_torch.solver.sparse_qp import DeviceSparseAugmentedKKT
 from madqp_tpu_torch.utils import profiling as P
 
